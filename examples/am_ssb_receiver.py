@@ -17,10 +17,6 @@ import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-import os as _os
-if _os.environ.get("JAX_PLATFORMS") == "cpu":
-    import jax as _jax
-    _jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
@@ -79,8 +75,8 @@ async def main():
 def isb_demo():
     """Independent-sideband reception: two programs on the two sidebands
     of ONE carrier, decoded simultaneously through a shared-transform
-    FilterBank (`models.analog.isb_receiver` — on TPU the fused VMEM
-    bank kernel runs both sideband filters off one forward transform)."""
+    FilterBank (`models.analog.isb_receiver` — both sideband filters run
+    off one forward transform)."""
     import jax.numpy as jnp
 
     from radiorust_tpu.blocks.base import StreamSig

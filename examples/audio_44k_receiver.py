@@ -24,13 +24,7 @@ import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-import os
-
 import numpy as np
-
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 
 from radiorust_tpu.blocks.base import Chain
 from radiorust_tpu.blocks.resampling import Downsampler

@@ -1,11 +1,11 @@
-"""radiorust_tpu — a TPU-native software-defined-radio framework.
+"""radiorust_tpu — a software-defined-radio framework on JAX/XLA.
 
 A from-scratch rebuild of the capabilities of JanBeh/radiorust (a Tokio
 actor-graph SDR library) as a JAX/XLA dataflow: DSP blocks are declarative
 specs with pure ``process(state, chunk_batch)`` functions; chains of blocks
 compile into single fused XLA programs scanned over chunk batches; filter/IR
-design runs host-side in float64; the hot sample path runs on TPU in
-complex64; multi-device scaling shards channels and time blocks over a
+design runs host-side in float64; the hot sample path runs on the
+accelerator (an NVIDIA GPU) in complex64; multi-device scaling shards channels and time blocks over a
 ``jax.sharding.Mesh`` with collective-permute halo exchange for streaming
 state.
 

@@ -1,6 +1,6 @@
 """Spectral analysis blocks.
 
-TPU-native equivalent of the reference's ``src/blocks/analysis.rs``:
+XLA equivalent of the reference's ``src/blocks/analysis.rs``:
 :class:`Fourier` computes a windowed FFT per chunk.  Window values are
 scaled so their energy sums to the chunk length (energy-preserving,
 ``src/blocks/analysis.rs:90-103``); ``center_dc`` rotates the DC bin to
@@ -14,7 +14,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..numbers import as_stream_real
-from ..ops.fft import fft as _fft
 from ..windowing import Rectangular, Window, window_table
 from .base import Block, BoundBlock, StreamSig
 
@@ -33,13 +32,7 @@ class _BoundFourier(BoundBlock):
         self.params = ()
 
     def process(self, params, state, x, reset):
-        # Native FFT, deliberately: the matmul four-step that wins for the
-        # overlap-save filters' 12288-pt transforms LOSES here — measured
-        # in-session on-chip for the bw_meter's 4096-pt windowed Fourier,
-        # 97.3 vs 93.7 us/step chain time (the analysis transform is a
-        # smaller share of its chain, and the 3-pass 'high' matmul FLOPs
-        # exceed the n log n at this size).
-        y = _fft(x * self.window_values, use_matmul=False)
+        y = jnp.fft.fft(x * self.window_values)
         if self.center_dc:
             y = jnp.roll(y, self.in_sig.chunk_len // 2, axis=-1)
         return state, y.astype(x.dtype)

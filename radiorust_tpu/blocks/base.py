@@ -1,7 +1,7 @@
 """Block protocol and chain composition.
 
 The reference wires independent Tokio tasks with capacity-1 channels
-(``src/blocks/mod.rs:23-34``, ``src/flow.rs``).  The TPU build replaces that
+(``src/blocks/mod.rs:23-34``, ``src/flow.rs``).  This build replaces that
 dynamic actor graph with *declarative block specs*:
 
 - A :class:`Block` is a lightweight spec (constructor args only).
@@ -106,8 +106,8 @@ class BoundBlock:
         """True if this block's math is valid on a per-device stream batch
         of ``in_sig.batch // ndev`` (data-parallel stream sharding,
         :func:`jit_step_sharded`).  Blocks with per-shard constraints
-        beyond divisibility (the pair-packed fused kernels need an *even
-        local* batch) override this; composites delegate to members."""
+        beyond divisibility override this; composites delegate to
+        members."""
         return self.in_sig.batch % ndev == 0
 
     # -- convenience -------------------------------------------------------
@@ -153,8 +153,7 @@ class _BoundChain(BoundBlock):
         # valid_from=v emits reference-comparable chunks only v steps
         # after its *input* became comparable, so cascaded zero-primed
         # histories add (e.g. two overlap-save Filters -> 2 tainted
-        # chunks, matching _BoundFilterDemodFilter's fused valid_from=2
-        # and the skip_out=2 used by test_models/test_parallel).
+        # chunks, the skip_out=2 used by test_models/test_parallel).
         self.valid_from = sum(b.valid_from for b in bound)
         # A phase-mode (schedule-padded) tail block makes the whole
         # chain's output ragged; propagate for outer compositions.
@@ -261,10 +260,8 @@ class Chain(Block):
 # ---------------------------------------------------------------------------
 # Wire format for the jit boundary
 #
-# Some TPU execution environments cannot marshal complex64 arrays across the
-# host<->program boundary (arguments/results), while complex arithmetic
-# *inside* a compiled program is fully supported.  The framework therefore
-# packs every complex leaf crossing a jit boundary into a float32 array with
+# The framework packs every complex leaf crossing a jit boundary (program
+# arguments and results, checkpoints) into a float32 array with
 # a leading [2] axis (contiguous re/im planes) and reconstructs it with
 # ``lax.complex`` inside the program.  Packed leaves are marked with a
 # single-key dict so pytrees stay self-describing; the split/join fuses away
@@ -278,8 +275,8 @@ _WIRE_KEY = "__c64_wire__"
 def _is_complex_leaf(x):
     if isinstance(x, complex):
         # Bare Python complex scalars (e.g. MapSample.with_params closure
-        # params) must also ride the wire format — the relay backend
-        # cannot marshal any complex value across the jit boundary.
+        # params) ride the wire format too, so every complex value
+        # crosses the jit boundary the same way.
         return True
     return hasattr(x, "dtype") and jnp.issubdtype(x.dtype, jnp.complexfloating)
 
@@ -352,18 +349,16 @@ def jit_step_sharded(bound: BoundBlock, mesh, axis: str) -> Callable:
 
     Requires ``bound.shard_batch_ok(mesh.shape[axis])``: the batch must
     split evenly over the axis *and* every member block's per-shard
-    constraints must hold on the local batch (the pair-packed fused
-    kernels need an even per-device batch).  Designed for serving fleets
-    of streams on a TPU pod slice; validated on the virtual CPU mesh in
-    tests.
+    constraints must hold on the local batch.  Designed for serving
+    fleets of streams on several GPUs; validated on the virtual CPU mesh
+    in tests.
     """
     ndev = mesh.shape[axis]
     if not bound.shard_batch_ok(ndev):
         raise ValueError(
             f"batch {bound.in_sig.batch} cannot shard over mesh axis "
             f"{axis!r} ({ndev} devices): the local batch must divide "
-            f"evenly and satisfy every block's per-shard constraint "
-            f"(pair-packed fused kernels need an even local batch)")
+            f"evenly and satisfy every block's per-shard constraint")
 
     def local(params, state, x, reset):
         return bound.process(params, state, x, reset)

@@ -13,14 +13,13 @@ Channel ``c`` of stream ``b`` is row ``b * M + c``.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ..ops.channelizer import design_prototype, pfb_channelize
 from .base import Block, BoundBlock, StreamSig
 
-__all__ = ["Channelizer", "ChannelizerDemod"]
+__all__ = ["Channelizer"]
 
 
 class _BoundChannelizer(BoundBlock):
@@ -65,100 +64,3 @@ class Channelizer(Block):
     def bind(self, sig: StreamSig) -> _BoundChannelizer:
         return _BoundChannelizer(sig, self.num_channels,
                                  self.taps_per_branch)
-
-
-class _BoundChannelizerDemod(BoundBlock):
-    """Fused PFB + per-channel FM demod (ops/pallas_channelizer.py).
-
-    Equals ``Chain(Channelizer(M, K), FmDemod(dev))`` — the XLA pair
-    re-reads the input K times for the branch FIR and round-trips the
-    channel values through HBM; the kernel reads once and demodulates in
-    VMEM.  State and semantics (continuity, repeat-last-output on breaks,
-    traced retunable factor) mirror the unfused blocks exactly.
-
-    Parity caveat: on *empty* channels the quadrature product is at the
-    f32 noise floor (~1e-14), where the fused FIR+DFT's different
-    summation order can flip its sign and swing atan2 by ~pi vs the
-    unfused path.  Channels carrying signal match to ~2e-7 (tested);
-    demodulating an empty channel is undefined noise in any
-    implementation, including the reference's per-sample loop.
-    """
-
-    @property
-    def output_is_real(self):
-        return True
-
-    def __init__(self, sig: StreamSig, m: int, k: int, deviation: float):
-        from ..numbers import TAU
-        from ..ops.pallas_channelizer import (HIST_FRAMES,
-                                              pfb_demod_supported)
-        if sig.chunk_len % m:
-            raise ValueError("chunk_len must be divisible by num_channels")
-        if not pfb_demod_supported(sig.chunk_len, m, k):
-            raise ValueError(
-                "fused PFB+demod kernel constraints unmet "
-                "(needs 64 channels, chunk_len % 128 == 0); use "
-                "Chain(Channelizer, FmDemod)")
-        self.in_sig = sig
-        self.m, self.k = m, k
-        # (K-1)*M for the FIR window + HIST_FRAMES*M so the kernel
-        # recomputes demod continuity from raw history (no channel state).
-        self.hist_len = (k - 1 + HIST_FRAMES) * m
-        ch_rate = sig.sample_rate / m
-        self.out_sig = StreamSig(sig.batch * m, sig.chunk_len // m, ch_rate)
-        proto = design_prototype(m, k)
-        self.params = {
-            "taps": proto.reshape(k, m).astype(np.float32),
-            # Traced: set_deviation retunes without recompile
-            # (src/blocks/modulation.rs:154-157).
-            "factor": np.float32(ch_rate / deviation / TAU),
-        }
-
-    def init_state(self):
-        b, m = self.in_sig.batch, self.m
-        return {
-            "hist": np.zeros((b, self.hist_len), np.complex64),
-            # Demod break semantics (repeat the stale output for the first
-            # sample after a discontinuity, src/blocks/modulation.rs:104,
-            # 119-124) — per channel.
-            "last_out": np.zeros((b, m), np.float32),
-            "have_prev": np.zeros((b,), bool),
-        }
-
-    def process(self, params, state, x, reset):
-        from ..ops.pallas_channelizer import HIST_FRAMES, fused_pfb_demod
-        b, m = x.shape[0], self.m
-        t_out = self.out_sig.chunk_len
-        rm = reset[:, None]
-        hist = jnp.where(rm, jnp.zeros_like(state["hist"]), state["hist"])
-        have = jnp.where(reset, False, state["have_prev"])
-        xp = jnp.concatenate([hist, x], axis=-1)
-        d = fused_pfb_demod(jnp.real(xp), jnp.imag(xp), params["factor"],
-                            params["taps"])
-        d = d[:, HIST_FRAMES * m:]                     # drop warmup frames
-        # First output frame: channels whose stream just (re)started repeat
-        # the stale output instead of demodulating against zero history.
-        first = jnp.where(have[:, None], d[:, :m], state["last_out"])
-        d = jnp.concatenate([first, d[:, m:]], axis=-1)
-        # Frame-major [b, T*M] -> folded channel rows [b*M, T].
-        y = jnp.swapaxes(d.reshape(b, t_out, m), 1, 2).reshape(b * m, t_out)
-        new_state = {
-            "hist": xp[:, -self.hist_len:],
-            "last_out": d[:, -m:],
-            "have_prev": jnp.ones_like(have),
-        }
-        return new_state, jax.lax.complex(y, jnp.zeros_like(y))
-
-
-class ChannelizerDemod(Block):
-    """Fused channelize + FM-demodulate block (TPU Pallas kernel)."""
-
-    def __init__(self, num_channels: int, deviation: float,
-                 taps_per_branch: int = 8):
-        self.num_channels = int(num_channels)
-        self.taps_per_branch = int(taps_per_branch)
-        self.deviation = float(deviation)
-
-    def bind(self, sig: StreamSig) -> _BoundChannelizerDemod:
-        return _BoundChannelizerDemod(sig, self.num_channels,
-                                      self.taps_per_branch, self.deviation)

@@ -1,6 +1,6 @@
 """Chunk reorganization: overlapping and (bulk) rechunking.
 
-TPU-native equivalents of the reference's ``src/blocks/chunks.rs``:
+XLA equivalents of the reference's ``src/blocks/chunks.rs``:
 
 - :class:`Overlapper` — concatenate the last ``chunk_count`` chunks into one
   overlapping analysis window per step (``src/blocks/chunks.rs:180-242``).

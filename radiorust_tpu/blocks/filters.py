@@ -1,6 +1,6 @@
 """Digital filters: overlap-save fast convolution, slew-rate limiting.
 
-TPU-native equivalents of the reference's ``src/blocks/filters.rs``.
+XLA equivalents of the reference's ``src/blocks/filters.rs``.
 
 :class:`Filter` keeps the reference's exact design pipeline
 (``src/blocks/filters.rs:184-239``), host-side in float64:
@@ -37,7 +37,6 @@ import numpy as np
 
 from .. import numbers as _nums
 from ..numbers import TAU
-from ..ops.fft import fft as _fft, ifft as _ifft
 from ..windowing import Kaiser, Rectangular, Window, window_table
 from .base import Block, BoundBlock, StreamSig
 
@@ -122,9 +121,8 @@ def extend_response(ir: np.ndarray, pad: int = None) -> np.ndarray:
     to m — the reference's 2n layout; a larger pad = the decoupled
     geometry where each step filters ``pad`` new samples against the same
     m-tap response.  The complex64 round-trip matches the reference's
-    f64->Flt cast before the response FFT.  Single owner of this layout —
-    the fused kernels' responses must stay bit-identical to the unfused
-    filter's."""
+    f64->Flt cast before the response FFT.  Single owner of this
+    layout."""
     m = ir.shape[-1]
     if pad is None:
         pad = m
@@ -179,8 +177,6 @@ class _BoundFilter(BoundBlock):
     def process(self, params, state, x, reset):
         n = self.in_sig.chunk_len
         m = self.ir_len
-        # zeros_like (not a complex scalar literal): complex immediates can
-        # hang some TPU compile paths.
         prev = jnp.where(reset[:, None], jnp.zeros_like(state["prev"]),
                          state["prev"])
         pair_real = (self.input_is_real and self._real_ir
@@ -192,34 +188,15 @@ class _BoundFilter(BoundBlock):
             x_full, prev_full = x, prev
             x = jax.lax.complex(x[0::2].real, x[1::2].real)
             prev = jax.lax.complex(prev[0::2].real, prev[1::2].real)
-        if self._use_pallas():
-            from ..ops.pallas_filter import (fused_overlap_save,
-                                             response_grid)
-            # Response grid [k1, k2] computed in-graph from the
-            # (retunable) response param.
-            grid = response_grid(params["response"])
-            outr, outi = fused_overlap_save(
-                jnp.real(prev), jnp.imag(prev),
-                jnp.real(x), jnp.imag(x),
-                jnp.real(grid).astype(jnp.float32),
-                jnp.imag(grid).astype(jnp.float32))
-            y = jax.lax.complex(outr, outi)
-        else:
-            # Matmul four-step FFT rides the MXU (see ops/fft.py); falls
-            # back to the native FFT for small or unfactorable sizes.
-            spec = (_fft(jnp.concatenate([prev, x], axis=-1))
-                    * params["response"])
-            y = _ifft(spec)[..., :n].astype(x.dtype)
+        spec = (jnp.fft.fft(jnp.concatenate([prev, x], axis=-1))
+                * params["response"])
+        y = jnp.fft.ifft(spec)[..., :n].astype(x.dtype)
         if pair_real:
             yr = jnp.stack([y.real, y.imag], axis=1)
             yr = yr.reshape(x_full.shape[0], n)
             y = jax.lax.complex(yr, jnp.zeros_like(yr))
             return {"prev": x_full[..., n - m:]}, y
         return {"prev": x[..., n - m:]}, y
-
-    def _use_pallas(self) -> bool:
-        from ..ops.pallas_filter import use_fused_filter
-        return use_fused_filter(self.in_sig.chunk_len, self.ir_len)
 
     def update_params(self, freq_resp: Callable,
                       window: Optional[Window] = None):
@@ -245,9 +222,8 @@ class Filter(Block):
     samples-per-step: the designed response (and resolution) is that of
     an ``ir_len``-chunk reference filter, but each step processes a full
     chunk of new samples over one (chunk+ir_len)-point transform — fewer
-    FLOPs and halo bytes per sample, and on TPU a tile-friendlier
-    transform factorization (e.g. ir 6144 at chunk 10240 -> 16384 =
-    128x128 full MXU tiles).  Output values match the coupled geometry.
+    FLOPs and halo bytes per sample.  Output values match the coupled
+    geometry.
     """
 
     def __init__(self, freq_resp: Callable, window: Optional[Window] = None,
@@ -323,33 +299,12 @@ class _BoundFilterBank(BoundBlock):
         k = self.num_outputs
         prev = jnp.where(reset[:, None], jnp.zeros_like(state["prev"]),
                          state["prev"])
-        if self._use_pallas():
-            from ..ops.pallas_filter import fused_filter_bank, response_grid
-            grids = jnp.stack([response_grid(params["responses"][j])
-                               for j in range(k)])
-            outr, outi = fused_filter_bank(
-                jnp.real(prev), jnp.imag(prev), jnp.real(x), jnp.imag(x),
-                jnp.real(grids).astype(jnp.float32),
-                jnp.imag(grids).astype(jnp.float32))
-            return ({"prev": x[..., n - m:]},
-                    tuple(jax.lax.complex(outr[:, j], outi[:, j])
-                          for j in range(k)))
-        spec = _fft(jnp.concatenate([prev, x], axis=-1))     # [b, n+m] once
+        spec = jnp.fft.fft(jnp.concatenate([prev, x], axis=-1))  # once
         prod = spec[None, :, :] * params["responses"][:, None, :]
-        ys = _ifft(prod.reshape(k * b, n + m))[..., :n].astype(x.dtype)
+        ys = jnp.fft.ifft(prod.reshape(k * b, n + m))[..., :n].astype(
+            x.dtype)
         ys = ys.reshape(k, b, n)
         return {"prev": x[..., n - m:]}, tuple(ys[j] for j in range(k))
-
-    def _use_pallas(self) -> bool:
-        # Shared backend gate plus a K-aware VMEM budget: the fused bank
-        # kernel's output blocks scale with the band count, and a bank
-        # too large for VMEM must fall back to the XLA shared-forward
-        # formulation rather than fail Mosaic compilation.
-        from ..ops.pallas_filter import bank_supported, use_fused_filter
-        return (use_fused_filter(self.in_sig.chunk_len, self.ir_len)
-                and bank_supported(self.in_sig.chunk_len,
-                                   self.num_outputs, m=self.ir_len,
-                                   batch=self.in_sig.batch))
 
     def update_params(self, freq_resps, window: Optional[Window] = None):
         """Redesign every band's response host-side (Filter::update
@@ -397,24 +352,18 @@ class _BoundSlewRateLimiter(BoundBlock):
 
     def process(self, params, state, x, reset):
         # Truly sequential recurrence (each output feeds the next clamp,
-        # src/blocks/filters.rs:338-349): the sample loop runs inside a
-        # Pallas kernel (time on sublanes, streams on lanes, carry in
-        # VMEM — ops/pallas_scan.py) with the rsqrt form of the clamp,
-        # which cuts the serial critical path to one transcendental.
-        # On-chip: 2218 Msps vs the lax.scan path's 875 (tools/exp_scan,
-        # 2.5x).  RRTPU_PALLAS_SCAN=0 falls back to lax.scan below.
+        # src/blocks/filters.rs:338-349).  On the GPU the sample loop runs
+        # inside one kernel (ops/pallas_scan.py); on the CPU, and for the
+        # complex128 validation mode, as the lax.scan below.
         max_diff = params / params.dtype.type(self.in_sig.sample_rate)
 
-        from radiorust_tpu import config
-        from radiorust_tpu.ops import pallas_scan
-        if (config.pallas_scan() and pallas_scan.scan_supported(x.shape[-1])
-                and x.dtype != jnp.complex128):
+        from .. import backend
+        if x.dtype != jnp.complex128 and backend.use_kernels():
+            from ..ops.pallas_scan import slew_scan
             prev = state["prev"]
-            yr, yi, pr, pi = pallas_scan.slew_scan(
-                jnp.real(x), jnp.imag(x),
-                jnp.real(prev).astype(jnp.float32),
-                jnp.imag(prev).astype(jnp.float32), max_diff,
-                rsqrt=True)
+            yr, yi, pr, pi = slew_scan(jnp.real(x), jnp.imag(x),
+                                       jnp.real(prev), jnp.imag(prev),
+                                       max_diff)
             return ({"prev": jax.lax.complex(pr, pi)},
                     jax.lax.complex(yr, yi))
 
@@ -425,7 +374,7 @@ class _BoundSlewRateLimiter(BoundBlock):
             out = prev + diff * scale.astype(x.dtype)
             return out, out
 
-        # unroll=8 amortizes scan-iteration overhead (2x on-chip; 32 was 5x WORSE); the recurrence itself
+        # unroll=8 amortizes scan-iteration overhead; the recurrence itself
         # has no O(1)-state associative form (the per-step map
         # y -> min(y+d, max(y-d, x)) composes into ever-larger min-max
         # trees), so log-depth parallelization is not available.

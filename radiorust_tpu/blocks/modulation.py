@@ -1,6 +1,6 @@
 """FM modulator and demodulator.
 
-TPU-native equivalents of the reference's ``src/blocks/modulation.rs``:
+XLA equivalents of the reference's ``src/blocks/modulation.rs``:
 
 - :class:`FmMod` — phase integrator.  The reference's per-sample
   ``phase += re*2*pi*dev/rate`` loop (``src/blocks/modulation.rs:45-52``)
@@ -20,10 +20,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .. import config
 from .. import numbers as _nums
 from ..numbers import TAU
-from ..ops.cumsum import matmul_cumsum
 from .base import Block, BoundBlock, StreamSig
 
 __all__ = ["FmMod", "FmDemod"]
@@ -44,7 +42,7 @@ class _BoundFmMod(BoundBlock):
     def process(self, params, state, x, reset):
         rdt = jnp.real(x).dtype
         increments = x.real.astype(rdt) * params
-        theta = state["phase"][:, None] + matmul_cumsum(increments)
+        theta = state["phase"][:, None] + jnp.cumsum(increments, axis=-1)
         theta = jnp.mod(theta, np.asarray(TAU, rdt))
         y = jax.lax.complex(jnp.cos(theta), jnp.sin(theta))
         # The reference never resets modulator phase on events
@@ -92,11 +90,7 @@ class _BoundFmDemod(BoundBlock):
         have_prev = jnp.where(reset, False, state["have_prev"])
         shifted = jnp.concatenate([state["prev"][:, None], x[:, :-1]], axis=1)
         prod = x * jnp.conj(shifted)
-        if config.atan2_poly():
-            from ..ops.pallas_filter import _atan2_poly
-            demod = _atan2_poly(prod.imag, prod.real) * params
-        else:
-            demod = jnp.arctan2(prod.imag, prod.real) * params
+        demod = jnp.arctan2(prod.imag, prod.real) * params
         # Sample 0 uses the carried previous sample only when the stream is
         # continuous; otherwise it repeats the last emitted value.
         first = jnp.where(have_prev, demod[:, 0], state["last_out"])

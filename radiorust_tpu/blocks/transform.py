@@ -1,6 +1,6 @@
 """Basic transformations: gain, frequency shifting, per-sample mapping.
 
-TPU-native equivalents of the reference's ``src/blocks/transform.rs``.
+XLA equivalents of the reference's ``src/blocks/transform.rs``.
 """
 
 from __future__ import annotations
@@ -43,8 +43,7 @@ class _BoundGain(BoundBlock):
 def _shift_param_update(chunk_len: int, denom: int, sample_rate: float,
                         shift: float):
     """New factored phasor tables for ``shift`` (the traced mixer params).
-    Shared by FreqShifter and the fused MixerDecimator so the two front
-    ends cannot diverge on retune."""
+    Shared by FreqShifter's bind and its retune paths."""
     numer = round_half_away((denom * shift / sample_rate))
     ta, tb, adv = _shift_tables(chunk_len, denom, numer)
     return {"table_a": ta, "table_b": tb, "adv": adv}
@@ -53,8 +52,8 @@ def _shift_param_update(chunk_len: int, denom: int, sample_rate: float,
 def fold_phase_state(state, denom: int):
     """Phase-continuous retune state: fold the integer phase index into
     ``start_phase`` and restart the index at 0
-    (``src/blocks/transform.rs:322-328``).  Extra state keys (the fused
-    frontend's decimator history) pass through unchanged."""
+    (``src/blocks/transform.rs:322-328``).  Extra state keys pass through
+    unchanged."""
     k0 = np.asarray(state["k0"])
     start = np.asarray(state["start_phase"])
     new_start = (start + k0.astype(np.float64) * (TAU / denom)) % TAU

@@ -5,7 +5,7 @@ view over shared storage with zero-copy beginning-split operations
 (``bufferpool.rs:44-97``), ``ChunkBuf`` is its mutable builder, and
 ``ChunkBufPool`` recycles storage (``bufferpool.rs:187-223``).
 
-On the TPU build the *device* memory is managed by XLA; this pool manages
+In this build the *device* memory is managed by XLA; this pool manages
 the **host staging buffers** the streaming runtime shuffles between blocks
 and I/O drivers.  numpy slicing already gives zero-copy views, so ``Chunk``
 is a thin wrapper adding the reference's split API and pool-recycling of

@@ -1,22 +1,16 @@
-"""Global numeric-mode knobs for the device kernels.
+"""The one owner of the matmul/convolution precision.
 
-The MXU multiplies in bfloat16; float32 accuracy is recovered by
-multi-pass decomposition, selected via ``jax.lax.Precision``:
+Every ``dot_general`` and convolution on the device path (the polyphase
+resamplers, the channelizer's branch DFT) takes its ``precision`` from
+:func:`matmul_precision`, read at *trace* time:
 
-- ``DEFAULT``  — single pass (~3e-3 relative on a 12288-pt transform;
-  outside the framework's f32 SNR bound, do not use for filters),
-- ``HIGH``     — 3 passes (bf16_3x),
-- ``HIGHEST``  — 6 passes (bf16_6x, f32-equivalent).
+- ``highest`` (the default): full float32.  The library, ``bench.py``
+  and ``chip_smoke.py`` all run in it.
+- ``high`` / ``default``: lets the backend trade accuracy for speed (on
+  a GPU, TF32 tensor cores for float32 operands).
 
-``matmul_precision()`` is read at *trace* time by every kernel builder, so
-flipping it between ``jax.jit`` traces (or via the environment variable
-``RRTPU_MATMUL_PRECISION``) selects the mode without code changes.
-
-``complex_mm_3mul()`` selects the Gauss/Karatsuba 3-multiplication complex
-product (m1 = ar·br, m2 = ai·bi, m3 = (ar+ai)·(br+bi)) instead of the
-4-multiplication form — 25% fewer MXU FLOPs per complex matmul at the cost
-of one extra VPU add per operand and mild cancellation (measured ~1e-6
-relative on the WFM transforms, inside the f32 SNR bound).
+``RRTPU_MATMUL_PRECISION`` or :func:`set_matmul_precision` selects
+another mode for measurement without code changes.
 """
 
 from __future__ import annotations
@@ -25,10 +19,8 @@ import os
 
 import jax
 
-__all__ = ["matmul_precision", "set_matmul_precision", "complex_mm_3mul",
-           "set_complex_mm_3mul", "pallas_tile", "set_pallas_tile",
-           "cumsum_mode", "set_cumsum_mode",
-           "filter_blockmm", "set_filter_blockmm"]
+__all__ = ["matmul_precision", "matmul_precision_name",
+           "set_matmul_precision"]
 
 _PRECISIONS = {
     "default": jax.lax.Precision.DEFAULT,
@@ -37,15 +29,22 @@ _PRECISIONS = {
 }
 
 _matmul_precision: str | None = None
-_cmm_3mul: bool | None = None
+
+
+def matmul_precision_name() -> str:
+    """Name of the precision mode in force (``"highest"`` by default)."""
+    if _matmul_precision is not None:
+        return _matmul_precision
+    name = os.environ.get("RRTPU_MATMUL_PRECISION", "highest").lower()
+    if name not in _PRECISIONS:
+        raise ValueError(f"RRTPU_MATMUL_PRECISION={name!r}: expected one "
+                         f"of {sorted(_PRECISIONS)}")
+    return name
 
 
 def matmul_precision() -> jax.lax.Precision:
-    """Precision for all device matmuls (trace-time)."""
-    if _matmul_precision is not None:
-        return _PRECISIONS[_matmul_precision]
-    return _PRECISIONS[
-        os.environ.get("RRTPU_MATMUL_PRECISION", "highest").lower()]
+    """Precision for all device matmuls and convolutions (trace-time)."""
+    return _PRECISIONS[matmul_precision_name()]
 
 
 def set_matmul_precision(name: str | None) -> None:
@@ -54,117 +53,3 @@ def set_matmul_precision(name: str | None) -> None:
     if name is not None and name.lower() not in _PRECISIONS:
         raise ValueError(f"unknown precision {name!r}")
     _matmul_precision = None if name is None else name.lower()
-
-
-_pallas_tile: int | None = None
-
-
-def pallas_tile() -> int:
-    """Stream-tile (batch rows per Pallas grid step) for the fused kernels
-    (trace-time; larger tiles = fewer grid steps but more VMEM per step)."""
-    if _pallas_tile is not None:
-        return _pallas_tile
-    return int(os.environ.get("RRTPU_PALLAS_TILE", "8"))
-
-
-def set_pallas_tile(tile: int | None) -> None:
-    global _pallas_tile
-    _pallas_tile = tile
-
-
-_atan2_poly: bool | None = None
-
-
-def atan2_poly() -> bool:
-    """Whether XLA-path FM demodulation uses the Cephes-style polynomial
-    atan2 (the same one the Pallas demod kernel uses, ~1.2e-7 rad max
-    error) instead of the backend's native lowering (trace-time;
-    ``RRTPU_ATAN2=poly``)."""
-    if _atan2_poly is not None:
-        return _atan2_poly
-    return os.environ.get("RRTPU_ATAN2", "native").lower() == "poly"
-
-
-def set_atan2_poly(enabled: bool | None) -> None:
-    global _atan2_poly
-    _atan2_poly = enabled
-
-
-_pallas_scan: bool | None = None
-
-
-def pallas_scan() -> bool:
-    """Whether SlewRateLimiter's per-sample recurrence runs as a Pallas
-    in-kernel sample loop instead of ``lax.scan`` (trace-time;
-    ``RRTPU_PALLAS_SCAN=0`` falls back to the scan).  AgcControl is NOT
-    gated here — it always uses the exact clamped-affine
-    associative_scan, which beat both sequential forms on-chip
-    (tools/exp_scan.py)."""
-    if _pallas_scan is not None:
-        return _pallas_scan
-    return os.environ.get("RRTPU_PALLAS_SCAN", "1") == "1"
-
-
-def set_pallas_scan(enabled: bool | None) -> None:
-    global _pallas_scan
-    _pallas_scan = enabled
-
-
-_cumsum_mode: str | None = None
-
-
-def cumsum_mode() -> str:
-    """``"matmul"`` (default) lowers long-axis prefix sums as MXU
-    triangular matmuls (:func:`radiorust_tpu.ops.cumsum.matmul_cumsum`);
-    ``"xla"`` keeps ``jnp.cumsum``'s native shift-ladder lowering
-    (trace-time; ``RRTPU_CUMSUM=xla`` for A/B ablation)."""
-    if _cumsum_mode is not None:
-        return _cumsum_mode
-    return os.environ.get("RRTPU_CUMSUM", "matmul").lower()
-
-
-def set_cumsum_mode(mode: str | None) -> None:
-    global _cumsum_mode
-    if mode is not None and mode.lower() not in ("matmul", "xla"):
-        raise ValueError(f"unknown cumsum mode {mode!r}")
-    _cumsum_mode = None if mode is None else mode.lower()
-
-
-_filter_blockmm: bool | None = None
-
-
-def filter_blockmm() -> bool:
-    """Whether the fused overlap-save kernels run their complex matmuls in
-    BLOCK form: one real dot per DFT stage on [[Dr,-Di],[Di,Dr]]-structured
-    operands (doubled contraction depth, constants' bf16 hi/lo splits
-    precomputed at trace time) instead of 3-4 separate real dots with
-    in-kernel operand splitting.  Same FLOPs as the 4-mult form, 1/4 the
-    MXU dispatches, no f32 cross adds.  Trace-time;
-    ``RRTPU_FILTER_MM=cmm`` restores the classic pipeline (block ignores
-    ``RRTPU_CMM`` — the structure subsumes it).  DEFAULT ON: measured
-    on-chip (tools/exp_filter.py, in-session) filter1 67.8 vs 76.1 us
-    and the full WFM chain 164.8 vs 177.9 us at 'high' precision, with
-    smaller but real wins at 'highest' (110.6 vs 114.3 / 252.3 vs
-    257.3); the fused demod kernel gains the same way (58.1 vs 64.1).
-    Transform error vs the classic pipeline: 2.7e-6 max rel ('high') /
-    8.8e-7 ('highest') on the 12288-pt WFM transform."""
-    if _filter_blockmm is not None:
-        return _filter_blockmm
-    return os.environ.get("RRTPU_FILTER_MM", "block").lower() == "block"
-
-
-def set_filter_blockmm(enabled: bool | None) -> None:
-    global _filter_blockmm
-    _filter_blockmm = enabled
-
-
-def complex_mm_3mul() -> bool:
-    """Whether complex matmuls use the 3-multiplication Gauss form."""
-    if _cmm_3mul is not None:
-        return _cmm_3mul
-    return os.environ.get("RRTPU_CMM", "4mul").lower() == "3mul"
-
-
-def set_complex_mm_3mul(enabled: bool | None) -> None:
-    global _cmm_3mul
-    _cmm_3mul = enabled

@@ -20,7 +20,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from radiorust_tpu.ops.cumsum import matmul_cumsum
 
 __all__ = [
     "level",
@@ -141,9 +140,8 @@ def bandwidth_jax(double_percentile: float, sample_rate: float,
     One prefix scan serves BOTH walk directions: with ``c`` the forward
     cumsum of the walked energies and ``S`` the total, the reverse walk's
     running sums are ``crev[k] = S - c[n-2-k]`` (``crev[n-1] = S``), so
-    the reverse discount needs no second cumsum and no lane reversal of
-    the spectrum — both were measured at ~100 us each per step on-chip
-    (tools/exp_metering.py).  Exact in real arithmetic; differs from a
+    the reverse discount needs no second cumsum and no reversal of the
+    spectrum.  Exact in real arithmetic; differs from a
     literal reversed cumsum by f32 ulps (a bin whose prefix lands within
     ~1 ulp of the limit can count differently — same caveat class as the
     sharded Squelch threshold)."""
@@ -152,10 +150,9 @@ def bandwidth_jax(double_percentile: float, sample_rate: float,
     S = jnp.sum(e, axis=-1)
     limit = S * (double_percentile / 2.0)
     # The bin walk (_bin_walk_order) is a circular shift by ceil(n/2):
-    # an explicit roll (two slices + concat) instead of a general gather,
-    # which the TPU lowers as per-lane shuffles.
+    # an explicit roll (two slices + concat) instead of a general gather.
     w = jnp.roll(e, -((n + 1) // 2), axis=-1)
-    c = matmul_cumsum(w)
+    c = jnp.cumsum(w, axis=-1)
 
     def take(a, idx):
         return jnp.take_along_axis(a, idx[..., None], axis=-1)[..., 0]
@@ -189,9 +186,8 @@ def bandwidth_jax(double_percentile: float, sample_rate: float,
 def rescale_energy_jax(resolution: int, bins: jax.Array) -> jax.Array:
     """Resample bin energies: [..., n] complex -> [..., resolution] real.
 
-    The overlap weights form a sparse banded matrix; on TPU the dense
-    matmul keeps it on the MXU which beats a gather for typical display
-    resolutions.
+    The overlap weights form a sparse banded matrix, applied as one dense
+    matmul over the bins.
     """
     e = (jnp.abs(bins) ** 2).astype(jnp.float32)
     m = _overlap_matrix(resolution, bins.shape[-1], xp=jnp).astype(jnp.float32)

@@ -1,2 +1,2 @@
 """Composed pipelines ("model families"): the reference's example
-applications rebuilt as compiled TPU chains."""
+applications rebuilt as compiled XLA chains."""

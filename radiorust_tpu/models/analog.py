@@ -125,9 +125,8 @@ def isb_receiver(tune_shift: float = 0.0, volume: float = 1.0,
     is two filter-method SSB receivers sharing everything up to the
     sideband split.  Here that split is ONE :class:`FilterBank` — the
     USB and LSB selection filters share a single forward transform and
-    one previous-chunk state (and, on TPU, the fused VMEM bank kernel,
-    ``ops/pallas_filter.fused_filter_bank``) instead of running two full
-    overlap-save filters.  Per-band outputs are identical to standalone
+    one previous-chunk state instead of running two full overlap-save
+    filters.  Per-band outputs are identical to standalone
     :func:`ssb_receiver` chains tuned to each sideband.
 
     The reference library builds receivers as broadcast fan-outs of one

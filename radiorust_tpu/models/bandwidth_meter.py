@@ -24,15 +24,10 @@ __all__ = ["bandwidth_meter_chain", "measure_bandwidth"]
 def bandwidth_meter_chain(freq_offset: float = 0.0,
                           max_bandwidth: float = 50000.0,
                           quality: int = 4,
-                          analysis_rate: float = 102400.0,
-                          fuse_frontend: bool = False) -> Chain:
+                          analysis_rate: float = 102400.0) -> Chain:
     """Spectrum chain; feed 1.024 Msps IQ, get overlapped Kaiser spectra.
 
-    ``fuse_frontend=True`` replaces the first two blocks with the fused
-    mixer+decimator Pallas kernel (same rational mixer tables and
-    decimation plan — the r4 super-row generalization covers this
-    config's 10x ratio; the mixed intermediate never touches HBM).
-    Defaults keep the literal block-for-block chain of the reference
+    The literal block-for-block chain of the reference
     (``examples/bandwidth_meter/main.rs:43-55``).
     """
 
@@ -40,14 +35,9 @@ def bandwidth_meter_chain(freq_offset: float = 0.0,
         return np.where(np.abs(freqs) <= max_bandwidth / 2.0,
                         1.0 + 0.0j, 0.0j)
 
-    if fuse_frontend:
-        from ..blocks.frontend import MixerDecimator
-        head = [MixerDecimator(freq_offset, analysis_rate, max_bandwidth)]
-    else:
-        head = [FreqShifter.with_shift(freq_offset),
-                Downsampler(analysis_rate, max_bandwidth)]
     return Chain(
-        *head,
+        FreqShifter.with_shift(freq_offset),
+        Downsampler(analysis_rate, max_bandwidth),
         Filter.new(lp),
         Overlapper(quality),
         Fourier.with_window(Kaiser.with_null_at_bin(float(quality))),

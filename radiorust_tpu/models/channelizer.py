@@ -21,24 +21,14 @@ __all__ = ["channelized_receiver"]
 def channelized_receiver(num_channels: int = 64,
                          taps_per_branch: int = 8,
                          deviation_fraction: float = 0.25,
-                         input_rate: float = 16384000.0,
-                         fuse: bool = False) -> Chain:
+                         input_rate: float = 16384000.0) -> Chain:
     """Channelize -> per-channel quadrature FM demod -> gain.
 
     ``deviation_fraction`` scales the per-channel FM deviation relative to
     the channel bandwidth (``input_rate / num_channels``).
-    ``fuse=True`` replaces the Channelizer+FmDemod pair with the fused
-    Pallas PFB+demod kernel (one HBM read of the input instead of K;
-    equivalence-tested in tests/test_channelizer.py).
     """
     channel_rate = input_rate / num_channels
     deviation = deviation_fraction * channel_rate
-    if fuse:
-        from ..blocks.channelize import ChannelizerDemod
-        return Chain(
-            ChannelizerDemod(num_channels, deviation, taps_per_branch),
-            GainControl(1.0),
-        )
     return Chain(
         Channelizer(num_channels, taps_per_branch),
         FmDemod(deviation),

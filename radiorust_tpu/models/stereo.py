@@ -141,7 +141,6 @@ def stereo_mpx_decoder(separation: float = 1.0,
 def wfm_stereo_receiver(tune_shift: float = 0.0, volume: float = 1.0,
                         deviation: float = 150000.0,
                         separation: float = 1.0,
-                        fuse_frontend: bool = False,
                         filter_ir_len=None) -> Graph:
     """Full stereo WFM receiver as one compiled DAG.
 
@@ -157,13 +156,8 @@ def wfm_stereo_receiver(tune_shift: float = 0.0, volume: float = 1.0,
     """
     g = Graph()
     iq = g.input("iq")
-    if fuse_frontend:
-        from ..blocks.frontend import MixerDecimator
-        head = [MixerDecimator(tune_shift, MPX_RATE, 200000.0)]
-    else:
-        head = [FreqShifter.with_shift(tune_shift),
-                Downsampler(MPX_RATE, 200000.0)]
-    mpx = g.chain([*head, Filter.new(_lowpass_100k,
+    mpx = g.chain([FreqShifter.with_shift(tune_shift),
+                   Downsampler(MPX_RATE, 200000.0), Filter.new(_lowpass_100k,
                                      ir_len=filter_ir_len),
                    FmDemod(deviation)], iq)
     stereo, pilot = _add_stereo_decode(g, mpx, separation, volume,

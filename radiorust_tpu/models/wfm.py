@@ -87,54 +87,31 @@ def wfm_transmitter(deviation: float = 150000.0,
 def wfm_receiver(tune_shift: float = 0.0, volume: float = 1.0,
                  deviation: float = 150000.0,
                  fuse_deemphasis: bool = False,
-                 fuse_frontend: bool = False,
-                 fuse_demod: bool = False,
-                 fuse_mid: bool = False,
                  filter_ir_len=None) -> Chain:
     """The WFM receive chain as a composable block spec.
 
-    ``fuse_frontend=True`` replaces the first two blocks with the fused
-    mixer+decimator Pallas kernel (same math, ~4x faster front end on TPU).
-    ``fuse_demod=True`` fuses FmDemod with the deemphasis filter;
-    ``fuse_mid=True`` goes further and merges the channel filter, demod,
-    and deemphasis filter into one kernel (``FilterDemodFilter``).
     ``fuse_deemphasis=True`` folds the deemphasis filter's impulse response
-    into the final decimating FIR (an exact LTI composition).  Defaults
-    keep the literal block-for-block chain of the reference.
+    into the final decimating FIR (an exact LTI composition).  The default
+    keeps the literal block-for-block chain of the reference.
 
     ``filter_ir_len`` decouples the two overlap-save filters' IR length
     from the mid-chain chunk (decoupled geometry, blocks/filters.py):
     binding at a larger input chunk with ``filter_ir_len=6144`` keeps the
     reference's designed responses (62.5 Hz resolution at 384 kHz) while
     each step processes more new samples per transform — e.g. input
-    chunk 49152 gives a mid chunk of 18432 and a 24576 = 192x128
-    transform with full MXU tiles.  At the default 16384-chunk binding,
-    ``filter_ir_len=6144`` equals the coupled geometry exactly.
+    chunk 24576 gives a mid chunk of 9216 over 15360-point transforms.
+    At the default 16384-chunk binding, ``filter_ir_len=6144`` equals the
+    coupled geometry exactly.
     """
     from ..windowing import Rectangular
     irl = filter_ir_len
-    if fuse_frontend:
-        from ..blocks.frontend import MixerDecimator
-        head = [MixerDecimator(tune_shift, 384000.0, 200000.0)]
-    else:
-        head = [FreqShifter.with_shift(tune_shift),
-                Downsampler(384000.0, 200000.0)]
-    if fuse_mid:
-        from ..blocks.frontend import FilterDemodFilter
-        mid = [FilterDemodFilter(_lowpass_100k, deviation,
-                                 _deemphasis_band, ir_len=irl)]
-        tail = [Downsampler(48000.0, 2.0 * 20000.0)]
-    elif fuse_demod:
-        from ..blocks.frontend import FmDemodFilter
-        mid = [Filter.new(_lowpass_100k, ir_len=irl),
-               FmDemodFilter(deviation, _deemphasis_band, ir_len=irl)]
-        tail = [Downsampler(48000.0, 2.0 * 20000.0)]
-    elif fuse_deemphasis:
-        mid = [Filter.new(_lowpass_100k, ir_len=irl), FmDemod(deviation)]
+    head = [FreqShifter.with_shift(tune_shift),
+            Downsampler(384000.0, 200000.0)]
+    mid = [Filter.new(_lowpass_100k, ir_len=irl), FmDemod(deviation)]
+    if fuse_deemphasis:
         tail = [Downsampler(48000.0, 2.0 * 20000.0,
                             prefilter=(_deemphasis_band, Rectangular()))]
     else:
-        mid = [Filter.new(_lowpass_100k, ir_len=irl), FmDemod(deviation)]
         tail = [Filter.new_rectangular(_deemphasis_band, ir_len=irl),
                 Downsampler(48000.0, 2.0 * 20000.0)]
     return Chain(

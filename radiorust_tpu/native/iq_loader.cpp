@@ -2,7 +2,7 @@
 //
 // The reference's data loaders are native (Rust FFI around SoapySDR /
 // cpal, src/blocks/io/rf/soapysdr.rs:99-125 — MTU-sized blocking reads on
-// a worker thread).  This is the TPU build's native file-replay analog:
+// a worker thread).  This is this build's native file-replay analog:
 // the file is mapped read-only, a prefetch thread touches pages one
 // window ahead of the consumer (madvise WILLNEED + a byte-sum walk so
 // cold pages fault off the critical path), and `iq_read` is a plain

@@ -1,15 +1,15 @@
-"""Numeric policy for the TPU-native radio framework.
+"""Numeric policy for the radio framework.
 
 The reference (radiorust ``src/numbers.rs:23-42``) abstracts over f32/f64 via
 a ``Float`` trait; streams run in complex f32 at every I/O boundary while
 filter/IR design math runs in f64 (``src/blocks/filters.rs:165-166,188``).
 
-The TPU build fixes the same split as a *policy* instead of a generic
+This build fixes the same split as a *policy* instead of a generic
 parameter:
 
 - **Stream dtype**: ``complex64`` (f32 pairs) on device — matches the
   reference's I/O precision (``src/blocks/io/rf/soapysdr.rs:35``) and is the
-  native fast path on TPU (f32 VPU lanes, bf16/f32 MXU).
+  accelerator's fast path.
 - **Design dtype**: ``float64`` / ``complex128`` on host (numpy) — filter
   responses, window tables, resampler taps are computed exactly like the
   reference's f64 design path and only then cast to the stream dtype.
@@ -21,7 +21,7 @@ import os
 
 import numpy as np
 
-# Device (stream) dtypes — everything that flows per-sample on TPU.
+# Device (stream) dtypes — everything that flows per-sample on the device.
 REAL_DTYPE = np.float32
 COMPLEX_DTYPE = np.complex64
 
@@ -35,15 +35,15 @@ TAU = 2.0 * np.pi
 # Stream-dtype policy knob (f64 stream mode)
 # ---------------------------------------------------------------------------
 # The reference is generic over f32/f64 for the whole stream path
-# (src/numbers.rs:23-42: every block is Flt: Float).  The TPU build fixes
-# streams to complex64 — the native fast path — but offers ``c128`` as a
+# (src/numbers.rs:23-42: every block is Flt: Float).  This build fixes
+# streams to complex64 — the fast path — but offers ``c128`` as a
 # *CPU-backend validation mode*: bind blocks under it and the compiled
 # chain runs with complex128 streams, giving reference-class f64
 # numerics for tight oracle twins.  Requirements and limits:
 #
 # - ``jax.config.update("jax_enable_x64", True)`` must be on in the
 #   process (without it JAX silently truncates to f32).
-# - CPU backend only: TPU has no f64, and the Pallas kernels stay
+# - Validated on the CPU backend.  The hand-written kernels stay
 #   f32-only — blocks gate their kernel paths off under c128 and use
 #   the XLA formulations (which are dtype-generic).
 # - Read at BIND time (like config.py's trace-time knobs): set the mode

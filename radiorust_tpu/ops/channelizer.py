@@ -2,11 +2,12 @@
 
 The reference has no channelizer block — the analogous workload in its
 world is N parallel (FreqShifter -> Downsampler) chains, one per channel
-(cf. BASELINE.json config 5: "64-channel polyphase channelizer").  The
-TPU-native design replaces N mixer+decimator chains with one critically
-sampled polyphase FFT filterbank: a depthwise branch FIR (MXU-friendly
-grouped convolution) followed by a batched FFT across branches — O(K + log
-M) work per input sample for M channels instead of O(M * taps).
+(cf. BASELINE.json config 5: "64-channel polyphase channelizer").  This
+design replaces N mixer+decimator chains with one critically sampled
+polyphase filterbank: a depthwise branch FIR followed by an M-point DFT
+across branches — O(K + M) work per input sample for M channels (a dense
+DFT; an FFT across branches would make it O(K + log M)) instead of
+O(M * taps).
 
 Channel ``c`` is centered at ``+c * rate / M`` (wrapping, numpy FFT bin
 convention) and decimated to ``rate / M``.
@@ -77,7 +78,7 @@ def branch_fir(fr: jax.Array, fi: jax.Array, taps: jax.Array,
 
 def dft_channels(vr: jax.Array, vi: jax.Array, dr: jax.Array,
                  di: jax.Array) -> jax.Array:
-    """Branch DFT as a 4-mul complex matmul on the MXU.
+    """Branch DFT as a 4-mul complex matmul.
 
     ``vr/vi``: [b, T, M] branch-value planes; ``dr/di``: [M, C] DFT
     column planes (C = all M channels, or one device's channel group).
@@ -101,11 +102,9 @@ def pfb_channelize(xp: jax.Array, taps: jax.Array,
     h[k*M + m]``.
     Returns [batch, M, n/M] complex64: per-channel decimated streams.
 
-    TPU mapping: the K-tap branch FIR is K shifted fused multiply-adds on
-    the VPU (XLA's grouped-conv lowering is slow for depthwise filters),
-    and the M-point branch DFT is a complex matmul on the MXU (XLA's FFT
-    HLO runs ~10x below matmul throughput at these sizes — same trade as
-    ops/fft.py).
+    The K-tap branch FIR is K shifted fused multiply-adds (elementwise
+    work XLA fuses), and the M-point branch DFT is a dense complex matmul
+    at the configured precision.
     """
     b = xp.shape[0]
     k, m = taps.shape

@@ -1,38 +1,27 @@
-"""Pallas sequential-scan kernels for per-sample feedback recurrences.
+"""GPU kernel for the slew-rate limiter's per-sample recurrence.
 
 ``SlewRateLimiter`` (reference ``src/blocks/filters.rs:338-349``) is a
 true per-sample recurrence: each output feeds the next clamp, and the
 complex clamp has no O(1) associative form (the per-step map composes
 into ever-growing min-max trees), so some sequential sample loop is
-unavoidable.  On the XLA path it runs as ``lax.scan``; this kernel wins
-~1.7x at identical math by removing XLA's per-iteration loop machinery,
-and a further 1.45x by shortening the serial critical path to a single
-transcendental (the rsqrt clamp form) — on-chip A/B in tools/exp_scan.py,
-875 -> 2218 Msps total.  (``agc_scan`` is the sequential AGC analog,
-kept for the A/B; the shipping AgcControl instead uses an exact
-log-depth clamped-affine associative_scan, which beat every sequential
-form — blocks/transform.py.)
+unavoidable.  As ``lax.scan`` that loop becomes a device while-loop with
+kernel launches in every step.  This kernel runs the whole loop inside
+one Pallas program, through Triton:
 
-These kernels run the whole sample loop *inside* one Pallas program:
+- the streams are spread over the lanes of a block (``block_b`` streams
+  per program, one per thread), so independent streams run in parallel
+  and the grid covers the batch;
+- the time loop runs inside the program, with the carried previous
+  sample in registers;
+- samples are laid out ``[T, B]`` (time-major, streams contiguous), so
+  each step's load of one sample per stream is one coalesced row;
+- complex samples are separate f32 re/im planes, and the clamp takes one
+  transcendental on the critical path: ``md/|d| = md * rsqrt(|d|^2)``,
+  compared on the squared norm.
 
-- layout ``[T, B]`` — time on the sublane axis, streams on the lane axis
-  (the VPU is 8x128; every per-sample op processes the full stream batch
-  in one row),
-- complex samples as separate f32 re/im planes, so the magnitude
-  ``sqrt(re^2 + im^2)`` is pure elementwise math with **no cross-lane
-  traffic** (re and im never share a register),
-- carry state lives in VMEM scratch that persists across time tiles
-  (grid = batch-tiles x time-tiles, both "arbitrary"/sequential), so
-  arbitrarily long chunks stream through a bounded VMEM footprint,
-- the inner ``fori_loop`` advances 8 samples per iteration (manual
-  unroll; Mosaic supports only unroll=1/full) — mirroring the
-  measured-best ``lax.scan(unroll=8)`` on the XLA path.
-
-The kernels are numerically the oracle recurrence in f32; the shipping
-slew path uses the rsqrt form (oracle tests hold at 1e-5, on-chip
-validation at 3.5e-6 — VALIDATE_r03.json), with the sqrt/divide form
-kept for bit-parity A/B.  Off-TPU they run in the Pallas interpreter via
-``ops.mxu.pallas_call`` like every other kernel module.
+Off the card the same kernel runs in the Pallas interpreter, but only
+when a caller asks for it with ``interpret=True`` (the kernel's tests);
+the block itself takes ``lax.scan`` on the CPU (:mod:`radiorust_tpu.backend`).
 """
 
 from __future__ import annotations
@@ -42,184 +31,84 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from .mxu import pallas_call as _pallas_call  # off-TPU interpret policy
+__all__ = ["slew_scan", "block_streams"]
 
-__all__ = ["slew_scan", "agc_scan", "scan_supported"]
-
-LANES = 128
-# Time rows per grid step: 4 f32 [TT, 128] buffers (x/y, re/im) = 4 MB,
-# comfortably inside VMEM next to the carry scratch.
-_MAX_TT = 2048
+# Samples advanced per loop iteration: their loads do not depend on the
+# carry, so they issue together ahead of the serial clamp chain.
+_UNROLL = 8
 
 
-def _time_tile(T: int) -> int | None:
-    """Largest divisor of T that is <= _MAX_TT (None if T is prime-ish
-    and oversized — a tile under 64 rows would mean a grid step per
-    handful of samples, so such T falls back to the XLA scan)."""
-    if T <= _MAX_TT:
-        return T
-    for tt in range(_MAX_TT, 63, -1):
-        if T % tt == 0:
-            return tt
-    return None
+def block_streams(batch: int) -> int:
+    """Streams per program: a power of two (Triton's tensor rule), at most
+    one warp's 32 lanes, no wider than the batch needs."""
+    bb = 1
+    while bb < min(batch, 32):
+        bb *= 2
+    return bb
 
 
-def scan_supported(T: int) -> bool:
-    return _time_tile(T) is not None
+def _slew_kernel(T, xr_ref, xi_ref, md_ref, pr_ref, pi_ref,
+                 yr_ref, yi_ref, opr_ref, opi_ref):
+    md = md_ref[...]
+    md2 = md * md
 
+    def step(t, carry):
+        pr, pi = carry
+        dr = xr_ref[t, :] - pr
+        di = xi_ref[t, :] - pi
+        n2 = dr * dr + di * di
+        scale = jnp.where(n2 > md2, md * jax.lax.rsqrt(n2),
+                          jnp.float32(1.0))
+        pr = pr + dr * scale
+        pi = pi + di * scale
+        yr_ref[t, :] = pr
+        yi_ref[t, :] = pi
+        return pr, pi
 
-def _scan_kernel(step, n_carry, nt, TT, refs):
-    """Shared kernel body: time-tiled sample loop with VMEM-scratch carry.
-
-    ``refs`` = (smem scalars, xr, xi, carry-in x n, yr, yi,
-    carry-out x n, scratch x n)."""
-    sc_ref, xr_ref, xi_ref = refs[0], refs[1], refs[2]
-    carry_in = refs[3:3 + n_carry]
-    yr_ref, yi_ref = refs[3 + n_carry], refs[4 + n_carry]
-    carry_out = refs[5 + n_carry:5 + 2 * n_carry]
-    scratch = refs[5 + 2 * n_carry:]
-
-    @pl.when(pl.program_id(1) == 0)
-    def _():  # first time tile of this batch tile: seed the carry
-        for s, c in zip(scratch, carry_in):
-            s[...] = c[...]
-
-    # Manual 8x unroll (Mosaic's fori_loop only supports unroll=1 or
-    # full): one loop iteration advances 8 samples with static offsets
-    # off a single dynamic base index.
-    U = next(u for u in (8, 4, 2, 1) if TT % u == 0)
-
-    def body(i, carry):
-        base = i * U
-        for u in range(U):
-            xr = xr_ref[pl.ds(base + u, 1), :]
-            xi = xi_ref[pl.ds(base + u, 1), :]
-            carry, (outr, outi) = step(sc_ref, carry, xr, xi)
-            yr_ref[pl.ds(base + u, 1), :] = outr
-            yi_ref[pl.ds(base + u, 1), :] = outi
+    def unrolled(i, carry):
+        for u in range(_UNROLL):
+            carry = step(i * _UNROLL + u, carry)
         return carry
 
-    carry = jax.lax.fori_loop(
-        0, TT // U, body, tuple(s[...] for s in scratch))
-    for s, c in zip(scratch, carry):
-        s[...] = c
-
-    @pl.when(pl.program_id(1) == nt - 1)
-    def _():
-        for co, c in zip(carry_out, carry):
-            co[...] = c
+    n_full = T // _UNROLL
+    carry = jax.lax.fori_loop(0, n_full, unrolled, (pr_ref[...], pi_ref[...]))
+    carry = jax.lax.fori_loop(n_full * _UNROLL, T, step, carry)
+    opr_ref[...] = carry[0]
+    opi_ref[...] = carry[1]
 
 
-def _run_scan(step, n_carry, xr, xi, carries, scalars):
-    """Drive a per-sample recurrence kernel over ``[B, T]`` f32 planes.
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def slew_scan(xr, xi, prev_r, prev_i, max_diff, interpret: bool = False):
+    """SlewRateLimiter over ``[B, T]`` f32 planes; carry = previous sample.
 
-    ``carries``: tuple of ``[B]`` f32 state vectors.  Returns
-    ``(yr, yi, new_carries)``."""
+    Returns ``(yr, yi, prev_r, prev_i)``.  ``max_diff`` is a traced f32
+    scalar (retunable without recompiling)."""
     B, T = xr.shape
-    TT = _time_tile(T)
-    assert TT is not None, "caller must check scan_supported()"
-    nt = T // TT
-    Bp = -(-B // LANES) * LANES  # pad streams up to full lane rows
-    nb = Bp // LANES
+    bb = block_streams(B)
+    Bp = -(-B // bb) * bb
 
-    def prep(a):  # [B, T] -> [T, Bp]
-        a = a.T
-        return a if Bp == B else jnp.pad(a, ((0, 0), (0, Bp - B)))
+    def lanes(a):  # [B, ...] -> padded along the stream axis
+        pad = [(0, Bp - B)] + [(0, 0)] * (a.ndim - 1)
+        return a if Bp == B else jnp.pad(a, pad)
 
-    xrp, xip = prep(xr), prep(xi)
-    cps = tuple(jnp.pad(c, (0, Bp - B))[None, :] if Bp != B else c[None, :]
-                for c in carries)
-    sc = jnp.stack([jnp.float32(s) for s in scalars])
-
-    x_spec = pl.BlockSpec((TT, LANES), lambda b, t: (t, b))
-    c_spec = pl.BlockSpec((1, LANES), lambda b, t: (0, b))
-    kernel = functools.partial(_scan_kernel, step, n_carry, nt, TT)
-
-    def wrapped(*refs):
-        kernel(refs)
-
-    out_shapes = (
-        [jax.ShapeDtypeStruct((T, Bp), jnp.float32)] * 2
-        + [jax.ShapeDtypeStruct((1, Bp), jnp.float32)] * n_carry)
-    yr, yi, *new_c = _pallas_call(
-        wrapped,
-        grid=(nb, nt),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM), x_spec, x_spec]
-        + [c_spec] * n_carry,
-        out_specs=tuple([x_spec, x_spec] + [c_spec] * n_carry),
-        out_shape=tuple(out_shapes),
-        scratch_shapes=[pltpu.VMEM((1, LANES), jnp.float32)] * n_carry,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary")),
-    )(sc, xrp, xip, *cps)
-    return (yr[:, :B].T, yi[:, :B].T,
-            tuple(c[0, :B] for c in new_c))
-
-
-def _slew_step(sc_ref, carry, xr, xi):
-    """One sample of the slew clamp (oracle: diff scaled to |diff| <=
-    max_diff, reference ``src/blocks/filters.rs:338-349``)."""
-    md = sc_ref[0]
-    pr, pi = carry
-    dr = xr - pr
-    di = xi - pi
-    norm = jnp.sqrt(dr * dr + di * di)
-    scale = jnp.where(norm > md, md / norm, jnp.float32(1.0))
-    pr = pr + dr * scale
-    pi = pi + di * scale
-    return (pr, pi), (pr, pi)
-
-
-def _slew_step_rsqrt(sc_ref, carry, xr, xi):
-    """Same clamp with one transcendental on the critical path:
-    ``md/|d| = md * rsqrt(|d|^2)``, compare on the squared norm
-    (``sc_ref[1] = md^2``).  The guard keeps rsqrt's argument > md^2 > 0,
-    so no inf/NaN can be selected."""
-    md, md2 = sc_ref[0], sc_ref[1]
-    pr, pi = carry
-    dr = xr - pr
-    di = xi - pi
-    n2 = dr * dr + di * di
-    scale = jnp.where(n2 > md2, md * jax.lax.rsqrt(n2), jnp.float32(1.0))
-    pr = pr + dr * scale
-    pi = pi + di * scale
-    return (pr, pi), (pr, pi)
-
-
-def slew_scan(xr, xi, prev_r, prev_i, max_diff, rsqrt: bool = False):
-    """SlewRateLimiter over ``[B, T]`` f32 planes; carry = prev sample."""
-    if rsqrt:
-        yr, yi, (pr, pi) = _run_scan(
-            _slew_step_rsqrt, 2, xr, xi, (prev_r, prev_i),
-            (max_diff, max_diff * max_diff))
-    else:
-        yr, yi, (pr, pi) = _run_scan(_slew_step, 2, xr, xi,
-                                     (prev_r, prev_i), (max_diff,))
-    return yr, yi, pr, pi
-
-
-def _agc_step(sc_ref, carry, xr, xi):
-    """One sample of the feedback AGC loop:
-    ``y = g x; g += rate (ref - |y|); g in [0, max_gain]``."""
-    rate, ref, max_gain = sc_ref[0], sc_ref[1], sc_ref[2]
-    (g,) = carry
-    yr = xr * g
-    yi = xi * g
-    env = jnp.sqrt(yr * yr + yi * yi)
-    g = g + rate * (ref - env)
-    g = jnp.clip(g, jnp.float32(0.0), max_gain)
-    return (g,), (yr, yi)
-
-
-def agc_scan(xr, xi, gain, rate, reference, max_gain):
-    """AgcControl over ``[B, T]`` f32 planes; carry = loop gain.
-
-    Measured SLOWER than the block's clamped-affine associative_scan
-    (1961 vs 2562 Msps on-chip, tools/exp_scan.py) — the shipping
-    AgcControl uses the scan; this kernel is kept as the measured
-    sequential alternative and for the exp_scan A/B."""
-    yr, yi, (g,) = _run_scan(_agc_step, 1, xr, xi, (gain,),
-                             (rate, reference, max_gain))
-    return yr, yi, g
+    xrp = lanes(xr.astype(jnp.float32)).T            # [T, Bp]
+    xip = lanes(xi.astype(jnp.float32)).T
+    md = jnp.broadcast_to(jnp.asarray(max_diff, jnp.float32), (Bp,))
+    x_spec = pl.BlockSpec((T, bb), lambda b: (0, b))
+    c_spec = pl.BlockSpec((bb,), lambda b: (b,))
+    yr, yi, pr, pi = pl.pallas_call(
+        functools.partial(_slew_kernel, T),
+        grid=(Bp // bb,),
+        in_specs=[x_spec, x_spec, c_spec, c_spec, c_spec],
+        out_specs=(x_spec, x_spec, c_spec, c_spec),
+        out_shape=(jax.ShapeDtypeStruct((T, Bp), jnp.float32),) * 2
+        + (jax.ShapeDtypeStruct((Bp,), jnp.float32),) * 2,
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=1, num_stages=1),
+        interpret=interpret,
+        name="slew_scan",
+    )(xrp, xip, md, lanes(prev_r.astype(jnp.float32)),
+      lanes(prev_i.astype(jnp.float32)))
+    return yr.T[:B], yi.T[:B], pr[:B], pi[:B]

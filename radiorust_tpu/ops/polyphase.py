@@ -12,8 +12,8 @@ reference's accumulator emits output ``k`` at input index
 output base ``o_n = ceil(n q / p)`` (upsampling).  Both patterns are
 periodic: advancing ``q`` outputs advances exactly ``p`` inputs.  Grouping
 outputs by residue class mod ``q`` turns resampling into a single
-cross-correlation with ``q`` output channels and stride ``p`` — a shape XLA
-lowers onto the TPU MXU as an implicit GEMM:
+cross-correlation with ``q`` output channels and stride ``p`` — one strided
+convolution for XLA (cuDNN on the GPU):
 
     y[b, m*q + r] = sum_u  xp[b, s0 + m*p + u] * W[r, u]
 
@@ -300,7 +300,7 @@ def rational_fir(xp: jax.Array, kernel: jax.Array, p: int, q: int,
 
     Real/imaginary parts ride the conv batch axis so one real conv call
     serves the complex stream; XLA lowers the strided multi-channel
-    correlation onto the MXU.  ``real_input=True`` (stream known to carry
+    correlation as one convolution.  ``real_input=True`` (stream known to carry
     zero imaginary part) halves the conv work.
     """
     b = xp.shape[0]
@@ -330,7 +330,7 @@ def rational_fir(xp: jax.Array, kernel: jax.Array, p: int, q: int,
         window_strides=(p,), padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
         preferred_element_type=rdt,
-        precision=config.matmul_precision(),  # f32-accurate on the MXU
+        precision=config.matmul_precision(),
     )  # [2b, q, M']
     m = out_len // q
     out = out[:, :, :m]

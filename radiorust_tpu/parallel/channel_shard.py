@@ -9,7 +9,7 @@ channels as experts.  The reference's version of this workload is M
 independent per-channel chains (``examples/bandwidth_meter/main.rs:54-57``
 built M times), which a cluster would split the same way.
 
-TPU mapping (one ``shard_map`` over the whole chain, zero input
+Device mapping (one ``shard_map`` over the whole chain, zero input
 redistribution):
 
 1. The wideband input chunk replicates (it is one stream — every device
@@ -19,9 +19,9 @@ redistribution):
    the M polyphase branches) — the FIR work splits D ways.
 3. One ``all_gather`` over the channel axis assembles the decimated
    branch values ``v[b, T, M]`` (this is the only collective; it moves
-   the post-decimation data, 1/D of the input per device, over ICI).
+   the post-decimation data, 1/D of the input per device).
 4. Each device contracts the DFT columns of its *channel group* only —
-   the MXU work splits D ways — and feeds its ``[b * M/D, t]`` folded
+   the DFT work splits D ways — and feeds its ``[b * M/D, t]`` folded
    channels through the downstream blocks locally (pure data parallelism:
    channels never couple downstream).
 
@@ -235,7 +235,7 @@ class ChannelShardedChain:
         # propagation in multi-controller jit (and ``out_sharding``
         # demands Explicit-mode mesh axes).  Gather the channel dim
         # within each stream row first (post-decimation data, 1/M of the
-        # input — ICI-cheap), then merge sharded-b with replicated-M,
+        # input — cheap), then merge sharded-b with replicated-M,
         # the supported case.
         fold = self._fold()
 

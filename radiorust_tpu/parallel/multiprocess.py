@@ -1,7 +1,7 @@
 """Multi-process (multi-host) distributed execution.
 
-One TPU host controls only its own chips; a pod is driven by N identical
-processes running the same program (multi-controller SPMD).  This module
+One host controls only its own devices; a multi-host job is driven by N
+identical processes running the same program (multi-controller SPMD).  This module
 is the bring-up + validation layer for that mode:
 
 - :func:`initialize` wraps ``jax.distributed.initialize`` — after it,
@@ -55,10 +55,10 @@ def initialize(coordinator_address: str, num_processes: int,
                heartbeat_timeout_seconds: Optional[int] = None) -> None:
     """Join the job's coordination service (multi-controller bring-up).
 
-    Call once, before any other JAX API touches devices.  On a real TPU
-    pod the three arguments normally come from the scheduler's
-    environment and plain ``jax.distributed.initialize()`` autodetects
-    them; this explicit form is what the fake-cluster workers use.
+    Call once, before any other JAX API touches devices.  The three
+    arguments come from the launcher (coordinator ``host:port``, process
+    count, this process's index); the fake-cluster workers use
+    ``localhost``.
 
     ``heartbeat_timeout_seconds`` bounds dead-peer DETECTION latency:
     survivors of a peer crash error out of pending collectives once the

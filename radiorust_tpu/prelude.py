@@ -18,7 +18,6 @@ from .blocks.analysis import Fourier
 from .blocks.base import (Block, BoundBlock, Chain, StreamSig, jit_step,
                           make_scan, pack_wire, scan, unpack_wire)
 from .blocks.channelize import Channelizer
-from .blocks.frontend import MixerDecimator
 from .blocks.chunks import Overlapper, rechunk
 from .blocks.filters import (Filter, FilterBank, SlewRateLimiter,
                              deemphasis_factor)
@@ -37,7 +36,7 @@ from .windowing import CustomWindow, Kaiser, Rectangular, Window
 __all__ = [
     "Block", "BoundBlock", "Chain", "StreamSig", "jit_step", "make_scan",
     "scan", "pack_wire", "unpack_wire",
-    "Fourier", "Channelizer", "MixerDecimator", "Overlapper", "rechunk",
+    "Fourier", "Channelizer", "Overlapper", "rechunk",
     "Filter", "FilterBank", "SlewRateLimiter", "deemphasis_factor",
     "Graph", "BoundGraph", "graph_scan",
     "FmDemod", "FmMod", "Keyer", "Speed", "encode",

@@ -1,6 +1,6 @@
 """Dynamic streaming runtime.
 
-The compiled-graph path (``blocks/base.py``) is the TPU-native execution
+The compiled-graph path (``blocks/base.py``) is the device execution
 model: static chains fused by XLA.  This package provides the reference's
 *dynamic* dataflow on top of it — live (re)connectable producer/consumer
 blocks exchanging Signal messages over capacity-1 broadcast channels with

@@ -1,6 +1,6 @@
 """Hardware I/O boundary: SDR and audio source/sink blocks.
 
-TPU-native equivalent of the reference's ``src/blocks/io/`` layer.  The
+Equivalent of the reference's ``src/blocks/io/`` layer.  The
 reference wraps cpal (audio callbacks, ``src/blocks/io/audio/cpal.rs``) and
 SoapySDR (blocking driver calls through ``spawn_blocking``,
 ``src/blocks/io/rf/soapysdr.rs``).  Here the hardware edge is a *driver

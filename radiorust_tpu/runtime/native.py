@@ -2,12 +2,13 @@
 
 The reference pipelines blocks across CPU cores via Tokio tasks and its
 ``broadcast_bp`` channel (``src/sync/broadcast_bp.rs``).  This module is
-the native equivalent for the TPU build: each block runs on an OS thread,
+the native equivalent for this build: each block runs on an OS thread,
 handing Signal messages through the GIL-free C++ channel
 (``radiorust_tpu/native/broadcast_bp.cpp``).  JAX device dispatch releases the
 GIL, so host I/O, keying/control logic, and device compute for different
 pipeline stages genuinely overlap — the same steady-state pipelining the
-reference gets from its runtime, with the per-chunk math still on TPU.
+reference gets from its runtime, with the per-chunk math still on the
+device.
 
 Use :class:`NativeGraph` to build a pipeline::
 

@@ -86,7 +86,7 @@ class Samples:
     """A chunk of samples with its sample rate (``src/signal.rs:170-183``).
 
     ``chunk`` is a 1-D array (numpy on host, jax on device), or a 2-D
-    ``[streams, n]`` array for the batched serving path (a TPU-native
+    ``[streams, n]`` array for the batched serving path (a device
     widening: one message carries one chunk step of many independent
     streams; see :class:`runtime.blocks.RuntimeBlock`).
     """

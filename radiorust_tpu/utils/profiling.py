@@ -1,7 +1,7 @@
 """Profiling and tracing.
 
 The reference has no tracing subsystem (SURVEY.md §5); its only
-observability is out-of-band events on the data path.  The TPU build owes
+observability is out-of-band events on the data path.  This build owes
 one:
 
 - :class:`BlockStats` — per-block chunk/sample counters with wall-time

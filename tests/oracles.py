@@ -2,7 +2,7 @@
 
 Each oracle is an independent, literal reimplementation of the reference
 block's sequential loop (per-sample state updates, ring buffers, f64 phase
-accumulators) used to validate the vectorized TPU formulations.  They mirror
+accumulators) used to validate the vectorized XLA formulations.  They mirror
 radiorust's code paths structurally — e.g. the filter oracle emulates
 rustfft's *unnormalized* transforms with the reference's 1/(2n^2) scaling,
 whereas the production code uses numpy conventions with the scaling folded

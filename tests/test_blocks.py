@@ -1,5 +1,5 @@
 """Block tests: golden values from the reference's unit tests plus
-oracle equivalence for the vectorized TPU formulations."""
+oracle equivalence for the vectorized XLA formulations."""
 
 import numpy as np
 import pytest
@@ -377,7 +377,7 @@ def test_filter_matches_oracle_odd_n(n):
 def test_filter_ir_len_decoupled_matches_coupled():
     """Filter(ir_len=m) at a larger chunk computes the same filtering as
     the coupled filter at chunk m: same designed IR, same linear
-    convolution, different step geometry (VERDICT r4 item 1)."""
+    convolution, different step geometry."""
     rng = np.random.default_rng(21)
     rate, m, X = 48000.0, 256, 768
     total = 4 * X                     # = 12 coupled chunks
@@ -500,19 +500,17 @@ def test_make_scan_wire_safe():
     np.testing.assert_allclose(ys, np.asarray(want), atol=1e-6)
 
 
-def test_fm_demod_filter_set_deviation_traced():
-    """FmDemodFilter deviation retune swaps a traced scalar (no rebind),
+def test_fm_demod_set_deviation_traced():
+    """FmDemod deviation retune swaps a traced scalar (no rebind),
     matching semantics of rebinding with the new deviation."""
     import numpy as np
     from radiorust_tpu.blocks.base import StreamSig
-    from radiorust_tpu.blocks.frontend import FmDemodFilter
-    from radiorust_tpu.models.wfm import _deemphasis_band
+    from radiorust_tpu.blocks.modulation import FmDemod
 
     sig = StreamSig(2, 512, 384000.0)
-    b1 = FmDemodFilter(150000.0, _deemphasis_band).bind(sig)
-    b2 = FmDemodFilter(75000.0, _deemphasis_band).bind(sig)
-    p_retuned = {**b1.params, "factor": np.float32(
-        sig.sample_rate / 75000.0 / (2 * np.pi))}
+    b1 = FmDemod(150000.0).bind(sig)
+    b2 = FmDemod(75000.0).bind(sig)
+    p_retuned = np.float32(sig.sample_rate / 75000.0 / (2 * np.pi))
     rng = np.random.default_rng(0)
     x = (rng.standard_normal((2, 512))
          + 1j * rng.standard_normal((2, 512))).astype(np.complex64)
@@ -542,33 +540,10 @@ def test_map_sample_with_params():
     np.testing.assert_allclose(np.asarray(y2), -x)
 
 
-def test_fm_demod_poly_atan2_matches_native():
-    """RRTPU_ATAN2=poly uses the Cephes polynomial atan2 (~1.2e-7 rad max
-    error, f32-libm class) — outputs must match the native lowering."""
-    from radiorust_tpu import config
-    from radiorust_tpu.blocks.modulation import FmDemod
-
-    rng = np.random.default_rng(3)
-    x = (rng.standard_normal((2, 256))
-         + 1j * rng.standard_normal((2, 256))).astype(np.complex64)
-    b = FmDemod(1000.0).bind(sig(batch=2, chunk_len=256, rate=8000.0))
-    _, want = b.process(b.params, b.init_state(), jnp.asarray(x),
-                        np.zeros((2,), bool))
-    config.set_atan2_poly(True)
-    try:
-        _, got = b.process(b.params, b.init_state(), jnp.asarray(x),
-                           np.zeros((2,), bool))
-    finally:
-        config.set_atan2_poly(None)
-    np.testing.assert_allclose(np.asarray(got).real, np.asarray(want).real,
-                               atol=5e-7)
-
-
 def test_chain_valid_from_is_cumulative():
     """Warmup taint adds up through cascaded zero-primed histories: two
-    overlap-save filters taint TWO output chunks (matching the fused
-    FilterDemodFilter's valid_from=2 and the skip_out=2 used by the
-    model/parallel tests)."""
+    overlap-save filters taint TWO output chunks (the skip_out=2 used by
+    the model/parallel tests)."""
     from radiorust_tpu.blocks.base import Chain, StreamSig
     from radiorust_tpu.blocks.filters import Filter
     from radiorust_tpu.blocks.transform import GainControl

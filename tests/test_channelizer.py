@@ -137,32 +137,3 @@ def test_pfb_channel_matches_shift_downsample_chain():
             continue  # adjacent channels see transition-band energy
         leak = float(np.sum(np.abs(np.asarray(y_pfb)[2:, other, :]) ** 2))
         assert leak < 1e-3 * main_e, (other, leak / main_e)
-
-
-def test_fused_channelizer_demod_matches_unfused():
-    """ChannelizerDemod (fused Pallas kernel, interpret mode off-TPU) ==
-    Chain(Channelizer, FmDemod): multi-chunk continuity and reset."""
-    from radiorust_tpu.blocks.base import Chain, StreamSig
-    from radiorust_tpu.blocks.channelize import Channelizer, ChannelizerDemod
-    from radiorust_tpu.blocks.modulation import FmDemod
-
-    rng = np.random.default_rng(11)
-    b, n, m = 2, 1024, 64
-    rate = 1024000.0
-    dev = 0.25 * rate / m
-    sig = StreamSig(b, n, rate)
-    ref = Chain(Channelizer(m, 8), FmDemod(dev)).bind(sig)
-    fused = ChannelizerDemod(m, dev, 8).bind(sig)
-    assert fused.out_sig == ref.out_sig
-
-    sref = ref.init_state()
-    sfus = fused.init_state()
-    for step in range(4):
-        x = (rng.standard_normal((b, n))
-             + 1j * rng.standard_normal((b, n))).astype(np.complex64)
-        reset = np.asarray([step == 2, False])  # mid-stream break, one row
-        sref, yr = ref.process(ref.params, sref, jnp.asarray(x), reset)
-        sfus, yf = fused.process(fused.params, sfus, jnp.asarray(x), reset)
-        np.testing.assert_allclose(np.asarray(yf).real,
-                                   np.asarray(yr).real, atol=2e-5)
-        assert np.all(np.asarray(yf).imag == 0.0)

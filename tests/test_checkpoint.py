@@ -299,7 +299,7 @@ def test_random_pytrees_round_trip(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Sharded executors (VERDICT r2 item 7): the operational checkpoint story
+# Sharded executors: the operational checkpoint story
 # for exactly the deployments the parallel layer exists for.
 # ---------------------------------------------------------------------------
 

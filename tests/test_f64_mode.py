@@ -2,7 +2,7 @@
 validation mode closing the reference's last literal capability gap: the
 reference is generic over f32/f64 for the whole stream path
 (``/root/reference/src/numbers.rs:23-42``; every block is ``Flt: Float``),
-while the TPU build fixes streams to complex64.  Under ``c128`` the bound
+while the default build fixes streams to complex64.  Under ``c128`` the bound
 blocks run complex128 end to end (XLA formulations only — the Pallas
 kernels are f32 by design and gate themselves off), giving
 reference-class f64 numerics for tight oracle twins.

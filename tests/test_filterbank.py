@@ -178,43 +178,3 @@ def test_bank_time_shards():
     for k in got:
         np.testing.assert_allclose(np.concatenate(got[k], axis=0),
                                    np.asarray(want[k]), atol=2e-5)
-
-
-def test_bank_pallas_kernel_path_matches_xla_bank():
-    """The fused VMEM bank kernel path (one forward transform, K response
-    multiplies + inverses — TPU default when the chunk factors) equals
-    the XLA shared-forward formulation block-for-block (interpret mode;
-    the CPU backend gate is bypassed to exercise the kernel path)."""
-    import jax.experimental.pallas as pl
-
-    import radiorust_tpu.ops.pallas_filter as pf
-
-    sig = StreamSig(2, 2048, 128000.0)  # supported() chunk
-    xs = _chunks(steps=3, batch=2, n=2048, seed=3)
-    reset = np.zeros((2,), bool)
-
-    def run(force_pallas):
-        bank = FilterBank(BANDS).bind(sig)
-        if force_pallas:
-            bank._use_pallas = lambda: True
-        state = bank.init_state()
-        outs = []
-        for s in range(xs.shape[0]):
-            state, ys = bank.process(bank.params, state,
-                                     jnp.asarray(xs[s]), reset)
-            outs.append(np.stack([np.asarray(y) for y in ys]))
-        return np.stack(outs)
-
-    orig = pl.pallas_call
-
-    def interp_call(*a, **kw):
-        kw["interpret"] = True
-        return orig(*a, **kw)
-
-    pf.pl.pallas_call = interp_call
-    try:
-        got = run(force_pallas=True)
-    finally:
-        pf.pl.pallas_call = orig
-    want = run(force_pallas=False)
-    np.testing.assert_allclose(got, want, atol=2e-5)

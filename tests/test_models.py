@@ -115,30 +115,6 @@ def test_bandwidth_meter_chain():
     assert np.all(bws > 0.0)
 
 
-def test_bandwidth_meter_fused_frontend_matches_literal():
-    # The fused mixer+decimator frontend (r4 super-row generalization:
-    # the 10:1 ratio's p does not divide 128 lanes) is semantically
-    # identical to FreqShifter + Downsampler — same mixer tables, same
-    # rational plan, one Pallas kernel.
-    rate, n, t_chunks = 1024000.0, 10240, 4
-    t = np.arange(t_chunks * n) / rate
-    iq = (np.exp(2j * np.pi * 10000.0 * t)
-          + 0.5 * np.exp(2j * np.pi * -8000.0 * t)).astype(np.complex64)
-    chunks = iq.reshape(t_chunks, 1, n)
-    sig = StreamSig(1, n, rate)
-    ys_ref, _ = run_chain(
-        bandwidth_meter_chain(freq_offset=5000.0), sig, chunks)
-    ys_fused, bound = run_chain(
-        bandwidth_meter_chain(freq_offset=5000.0, fuse_frontend=True),
-        sig, chunks)
-    assert bound.out_sig.sample_rate == 102400.0
-    # Chain output is post-FFT (energy-preserving scale: peaks ~1e4);
-    # the two frontends differ only in f32 rounding order, so compare
-    # relative to the spectral peak (measured 9.6e-8).
-    peak = np.abs(ys_ref).max()
-    np.testing.assert_allclose(ys_fused, ys_ref, atol=2e-6 * peak)
-
-
 def test_wfm_fused_deemphasis_matches_unfused():
     # Folding the deemphasis filter into the final decimator is an exact
     # LTI composition: outputs match the literal chain sample-for-sample
@@ -166,67 +142,6 @@ def test_real_pair_packing_matches_generic():
         blk.input_is_real = False  # disable realness optimizations
     state, ys = scan(b, b.params, b.init_state(), jnp.asarray(iq))
     np.testing.assert_allclose(ys_opt, np.asarray(ys), atol=1e-5)
-
-
-def test_wfm_fused_frontend_matches_unfused():
-    # The fused mixer+decimator Pallas kernel (interpreter mode on CPU)
-    # equals the separate FreqShifter -> Downsampler blocks.
-    import radiorust_tpu.ops.pallas_frontend as pfe
-    import jax.experimental.pallas as pl
-    orig = pl.pallas_call
-    pfe.pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
-    try:
-        t_chunks = 3
-        iq, _ = synth_wfm_iq(1000.0, t_chunks)
-        sig = StreamSig(1, WFM_INPUT_CHUNK, WFM_INPUT_RATE)
-        ys_ref, _ = run_chain(
-            wfm_receiver(tune_shift=100000.0, fuse_frontend=False), sig, iq)
-        ys_fused, _ = run_chain(
-            wfm_receiver(tune_shift=100000.0, fuse_frontend=True), sig, iq)
-        np.testing.assert_allclose(ys_fused[1:], ys_ref[1:], atol=2e-4)
-    finally:
-        pfe.pl.pallas_call = orig
-
-
-def test_wfm_fused_demod_matches_unfused():
-    # Fused demod+deemphasis kernel (interpreter mode on CPU) equals the
-    # separate FmDemod -> Filter blocks; batch 2 also exercises stream
-    # pairing.
-    import radiorust_tpu.ops.pallas_filter as pfl
-    import jax.experimental.pallas as pl
-    orig = pl.pallas_call
-    pfl.pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
-    try:
-        iq1, _ = synth_wfm_iq(900.0, 3)
-        iq2, _ = synth_wfm_iq(2100.0, 3)
-        iq = np.concatenate([iq1, iq2], axis=1)
-        sig = StreamSig(2, WFM_INPUT_CHUNK, WFM_INPUT_RATE)
-        ys_ref, _ = run_chain(wfm_receiver(fuse_demod=False), sig, iq)
-        ys_fused, _ = run_chain(wfm_receiver(fuse_demod=True), sig, iq)
-        np.testing.assert_allclose(ys_fused[1:], ys_ref[1:], atol=3e-4)
-    finally:
-        pfl.pl.pallas_call = orig
-
-
-def test_wfm_fuse_mid_matches_unfused():
-    # Fully-merged mid-chain kernel (channel filter + demod + deemphasis in
-    # one Pallas call) equals the separate blocks; valid from chunk 2 (two
-    # cascaded overlap-save warmups).
-    import radiorust_tpu.ops.pallas_filter as pfl
-    import jax.experimental.pallas as pl
-    orig = pl.pallas_call
-    pfl.pl.pallas_call = lambda *a, **k: orig(*a, **{**k, "interpret": True})
-    try:
-        iq1, _ = synth_wfm_iq(900.0, 4)
-        iq2, _ = synth_wfm_iq(2100.0, 4)
-        iq = np.concatenate([iq1, iq2], axis=1)
-        sig = StreamSig(2, WFM_INPUT_CHUNK, WFM_INPUT_RATE)
-        ys_ref, _ = run_chain(wfm_receiver(fuse_mid=False), sig, iq)
-        ys_fused, bound = run_chain(wfm_receiver(fuse_mid=True), sig, iq)
-        assert bound.valid_from == 2
-        np.testing.assert_allclose(ys_fused[2:], ys_ref[2:], atol=3e-4)
-    finally:
-        pfl.pl.pallas_call = orig
 
 
 def test_wfm_tx_rx_roundtrip():

@@ -17,8 +17,19 @@ must surface errors, never block forever
 
 import os
 import pathlib
+import sys
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "tools"))
+
+import fake_cluster  # noqa: E402
 
 NPROC, LDEV = 4, 2
+
+
+def _record_state():
+    """The fake cluster's record file (bytes, or None when absent)."""
+    path = pathlib.Path(fake_cluster.ARTIFACT)
+    return path.read_bytes() if path.exists() else None
 
 
 def test_fake_cluster_four_process_global_mesh():
@@ -46,7 +57,7 @@ def test_fake_cluster_one_sided_failure_converges_not_hangs():
 
     from radiorust_tpu.parallel.multiprocess import launch_local_cluster
     repo = pathlib.Path(__file__).resolve().parents[1]
-    art = (repo / "MULTIPROC_r04.json").read_bytes()
+    art = _record_state()
     t0 = time.monotonic()
     codes, outputs = launch_local_cluster(
         str(repo / "tools" / "fake_cluster.py"),
@@ -58,8 +69,8 @@ def test_fake_cluster_one_sided_failure_converges_not_hangs():
     assert f"case 2 (ch={NPROC} x t={8 // NPROC}) FAILED" in joined
     assert "case 3" in joined and "case 6" in joined  # job kept going
     assert took < 850.0, f"converged by timeout, not verdict ({took}s)"
-    # The failure drill never touches the real artifact.
-    assert (repo / "MULTIPROC_r04.json").read_bytes() == art
+    # The failure drill never touches the record.
+    assert _record_state() == art
 
 
 def test_fake_cluster_sigkilled_peer_survivors_error_out():
@@ -68,18 +79,13 @@ def test_fake_cluster_sigkilled_peer_survivors_error_out():
     bounded time — exit nonzero, not hang until the launcher timeout.
     The multi-host analog of the reference's teardown cascade
     (/root/reference/src/sync/broadcast_bp.rs:170-205)."""
-    import sys
-    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
-                           / "tools"))
-    import fake_cluster
-
     repo = pathlib.Path(__file__).resolve().parents[1]
-    art = (repo / "MULTIPROC_r04.json").read_bytes()
+    art = _record_state()
     drill, outputs = fake_cluster.run_kill_drill(NPROC, LDEV,
                                                  timeout=600.0)
     assert drill["ok"], (drill, "\n".join(outputs))
     assert drill["victim_code"] == -9, drill
     assert drill["hung"] == 0, drill
-    # run_kill_drill never writes the artifact (the launcher merges the
+    # run_kill_drill never writes the record (the launcher merges the
     # verdict separately).
-    assert (repo / "MULTIPROC_r04.json").read_bytes() == art
+    assert _record_state() == art

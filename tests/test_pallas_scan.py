@@ -1,6 +1,10 @@
-"""Pallas sequential-scan kernels (ops/pallas_scan.py): both slew math
-forms vs the oracle, the multi-time-tile carry, batch lane padding, and
-the XLA fallback for unsupported chunk lengths."""
+"""The slew-rate limiter's GPU kernel (ops/pallas_scan.py), run here in
+the Pallas interpreter (``interpret=True``, the only way it runs off the
+card): the recurrence against the per-sample oracle, the carry across
+calls, stream padding to whole blocks, the unroll remainder, and the
+block's choice between the kernel and ``lax.scan``."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -8,7 +12,7 @@ import pytest
 import jax
 
 import oracles
-from radiorust_tpu import config
+from radiorust_tpu import backend
 from radiorust_tpu.blocks.base import StreamSig
 from radiorust_tpu.blocks.filters import SlewRateLimiter
 from radiorust_tpu.ops import pallas_scan
@@ -25,18 +29,21 @@ def _run(b, x, chunks):
     return np.concatenate(outs, axis=-1), state
 
 
-@pytest.mark.parametrize("rsqrt", [False, True])
-def test_slew_kernel_matches_oracle(rsqrt):
+def _kernel(x, md, prev=None):
+    B = x.shape[0]
+    prev = np.zeros(B, np.complex64) if prev is None else prev
+    return pallas_scan.slew_scan(
+        x.real.astype(np.float32), x.imag.astype(np.float32),
+        prev.real.astype(np.float32), prev.imag.astype(np.float32),
+        np.float32(md), interpret=True)
+
+
+@pytest.mark.parametrize("B,T", [(5, 256), (32, 64)])
+def test_slew_kernel_matches_oracle(B, T):
     rng = np.random.default_rng(3)
-    B, T = 5, 256
     x = (rng.standard_normal((B, T))
          + 1j * rng.standard_normal((B, T))).astype(np.complex64)
-    md = np.float32(0.4)
-    yr, yi, pr, pi = jax.jit(
-        lambda a, b, c, d: pallas_scan.slew_scan(a, b, c, d, md,
-                                                 rsqrt=rsqrt))(
-        x.real.astype(np.float32), x.imag.astype(np.float32),
-        np.zeros(B, np.float32), np.zeros(B, np.float32))
+    yr, yi, pr, pi = _kernel(x, 0.4)
     for b in range(B):
         want, prev = oracles.oracle_slew_rate_limiter(x[b], 1.0, 0.4)
         got = np.asarray(yr)[b] + 1j * np.asarray(yi)[b]
@@ -46,75 +53,73 @@ def test_slew_kernel_matches_oracle(rsqrt):
 
 
 def test_slew_kernel_multi_time_tile_carry():
-    # T = 4096 > _MAX_TT: the carry crosses grid steps through VMEM
-    # scratch; any seam shows up as a slew-clamp discontinuity.
+    # A 4096-sample chunk (the morse cells' chunk) run in two calls: the
+    # carry handed from the first call to the second must continue the
+    # recurrence exactly where one long call would.
     rng = np.random.default_rng(4)
     T = 4096
     x = (rng.standard_normal((1, T))
          + 1j * rng.standard_normal((1, T))).astype(np.complex64)
-    md = np.float32(0.3)
-    yr, yi, _, _ = jax.jit(
-        lambda a, b, c, d: pallas_scan.slew_scan(a, b, c, d, md,
-                                                 rsqrt=True))(
-        x.real.astype(np.float32), x.imag.astype(np.float32),
-        np.zeros(1, np.float32), np.zeros(1, np.float32))
+    yr1, yi1, pr, pi = _kernel(x[:, :T // 2], 0.3)
+    prev = (np.asarray(pr) + 1j * np.asarray(pi)).astype(np.complex64)
+    yr2, yi2, _, _ = _kernel(x[:, T // 2:], 0.3, prev)
+    got = np.concatenate([np.asarray(yr1) + 1j * np.asarray(yi1),
+                          np.asarray(yr2) + 1j * np.asarray(yi2)], axis=-1)
     want, _ = oracles.oracle_slew_rate_limiter(x[0], 1.0, 0.3)
-    np.testing.assert_allclose(np.asarray(yr)[0] + 1j * np.asarray(yi)[0],
-                               want, atol=1e-5)
+    np.testing.assert_allclose(got[0], want, atol=1e-5)
 
 
-def test_slew_block_pallas_equals_scan_path():
-    # The shipping block (kernel path) against the lax.scan fallback —
-    # same chunked streaming semantics, batch 3 (lane padding exercised).
+def test_slew_block_pallas_equals_scan_path(monkeypatch):
+    # The block on its kernel path (policy forced to the GPU choice, the
+    # kernel interpreted) against the lax.scan path it takes on the CPU —
+    # same chunked streaming semantics, batch 3 (stream padding exercised).
     rng = np.random.default_rng(5)
     B, T = 3, 512
     x = (rng.standard_normal((B, T))
          + 1j * rng.standard_normal((B, T))).astype(np.complex64)
     sig = StreamSig(B, T // 4, 1000.0)
-    b1 = SlewRateLimiter(300.0).bind(sig)
-    y1, s1 = _run(b1, x, 4)
-    config.set_pallas_scan(False)
-    try:
-        y2, s2 = _run(SlewRateLimiter(300.0).bind(sig), x, 4)
-    finally:
-        config.set_pallas_scan(None)
+    y2, s2 = _run(SlewRateLimiter(300.0).bind(sig), x, 4)
+    monkeypatch.setattr(backend, "use_kernels", lambda on=None: True)
+    monkeypatch.setattr(pallas_scan, "slew_scan", functools.partial(
+        pallas_scan.slew_scan, interpret=True))
+    y1, s1 = _run(SlewRateLimiter(300.0).bind(sig), x, 4)
     np.testing.assert_allclose(y1, y2, atol=1e-5)
     np.testing.assert_allclose(np.asarray(s1["prev"]),
                                np.asarray(s2["prev"]), atol=1e-5)
 
 
 def test_slew_block_falls_back_on_unsupported_chunk():
-    # 2310 > _MAX_TT with no divisor <= 2048 other than... it has
-    # divisors; use a prime-ish length instead: 2309 is prime.
-    assert not pallas_scan.scan_supported(2309)
+    # No chunk length is unsupported any more, so there is no fallback to
+    # take: this checks the unroll remainder instead.  A prime chunk
+    # length (2309) leaves a remainder that the tail loop must finish.
     rng = np.random.default_rng(6)
     B, T = 2, 2309
     x = (rng.standard_normal((B, T))
          + 1j * rng.standard_normal((B, T))).astype(np.complex64)
-    b = SlewRateLimiter(500.0).bind(StreamSig(B, T, 1000.0))
-    y, _ = _run(b, x, 1)
-    want, _ = oracles.oracle_slew_rate_limiter(x[0], 1.0, 0.5)
-    np.testing.assert_allclose(y[0], want, atol=1e-5)
-
-
-def test_agc_kernel_matches_oracle():
-    # The sequential AGC kernel (kept for A/B; the shipping AgcControl
-    # uses the clamped-affine associative scan, which beat it on-chip).
-    rng = np.random.default_rng(7)
-    B, T = 3, 192
-    x = (0.2 * (rng.standard_normal((B, T))
-                + 1j * rng.standard_normal((B, T)))).astype(np.complex64)
-    yr, yi, g = jax.jit(
-        lambda a, b, c: pallas_scan.agc_scan(a, b, c, np.float32(5e-3),
-                                             np.float32(1.0),
-                                             np.float32(100.0)))(
-        x.real.astype(np.float32), x.imag.astype(np.float32),
-        np.ones(B, np.float32))
+    yr, yi, _, _ = _kernel(x, 0.5)
     for b in range(B):
-        want, gw = oracles.oracle_agc(x[b], 1.0, 5e-3, 100.0)
-        np.testing.assert_allclose(
-            np.asarray(yr)[b] + 1j * np.asarray(yi)[b], want, atol=2e-4)
-        np.testing.assert_allclose(np.asarray(g)[b], gw, atol=2e-3)
+        want, _ = oracles.oracle_slew_rate_limiter(x[b], 1.0, 0.5)
+        np.testing.assert_allclose(np.asarray(yr)[b] + 1j * np.asarray(yi)[b],
+                                   want, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch,want", [(1, 1), (3, 4), (32, 32),
+                                        (64, 32), (100, 32)])
+def test_block_streams_power_of_two_per_program(batch, want):
+    assert pallas_scan.block_streams(batch) == want
+
+
+def test_slew_block_takes_scan_on_cpu(monkeypatch):
+    # On the CPU the policy picks lax.scan: the kernel is never traced.
+    def boom(*a, **k):
+        raise AssertionError("kernel traced on the CPU")
+    monkeypatch.setattr(pallas_scan, "slew_scan", boom)
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((2, 64))
+         + 1j * rng.standard_normal((2, 64))).astype(np.complex64)
+    y, _ = _run(SlewRateLimiter(200.0).bind(StreamSig(2, 64, 1000.0)), x, 1)
+    want, _ = oracles.oracle_slew_rate_limiter(x[1], 1000.0, 200.0)
+    np.testing.assert_allclose(y[1], want, atol=1e-5)
 
 
 def test_agc_block_survives_sustained_overdrive():

@@ -92,3 +92,21 @@ def test_recycling_surfaces_worker_error(tmp_path):
     with pytest.raises(RuntimeError, match="recycling worker"):
         serve_recycling(_spec, bad, 8000.0, chunks_per_worker=4,
                         ckpt_path=path, jax_platform="cpu", timeout=120.0)
+
+
+def test_supervisor_holding_the_gpu_is_refused(tmp_path, monkeypatch):
+    # One process per card: a supervisor that already initialized the GPU
+    # backend must not spawn GPU workers (they would fail for memory).
+    from radiorust_tpu.runtime import recycle
+    monkeypatch.setattr(recycle, "_supervisor_holds_gpu", lambda: True)
+    with pytest.raises(RuntimeError, match="card to itself"):
+        serve_recycling(_spec, _chunks(t=1), 8000.0, chunks_per_worker=1,
+                        ckpt_path=str(tmp_path / "gen.npz"))
+
+
+def test_supervisor_on_cpu_does_not_hold_the_gpu():
+    import jax
+
+    from radiorust_tpu.runtime import recycle
+    jax.devices()                     # the CPU backend is initialized
+    assert not recycle._supervisor_holds_gpu()

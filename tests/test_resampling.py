@@ -94,7 +94,7 @@ def run_ragged(block, chunks, rate):
 
 @pytest.mark.parametrize("out_rate", [44100.0, 22050.0, 11025.0])
 def test_downsample_any_chunk_audio_rates(out_rate):
-    """The VERDICT r4 item-3 contract: the reference's own 1.024 Msps
+    """The arbitrary-chunk contract: the reference's own 1.024 Msps
     input binds to standard audio rates at a power-of-two chunk
     (resampling.rs:103-133 handles any ratio/chunk; here phase mode).
     p = 10240/20480/40960 per 441 — for the lower rates p exceeds the

@@ -3,9 +3,13 @@ blocks, buffering — mirroring the reference's broadcast/flow behaviors."""
 
 import asyncio
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from radiorust_tpu.blocks.base import StreamSig
+from radiorust_tpu.blocks.modulation import FmDemod
 from radiorust_tpu.blocks.transform import FreqShifter, GainControl
 from radiorust_tpu.runtime import (ArraySink, ArraySource, Blackhole, Buffer,
                                    KeyerSource, Rechunker, RuntimeBlock,
@@ -674,7 +678,7 @@ def test_runtime_batched_serving_matches_per_stream():
 
 def test_runtime_pipeline_depth_matches_sync():
     """``pipeline_depth`` keeps device work in flight (JAX async dispatch)
-    without changing values or sample/event ordering: the TPU analog of the
+    without changing values or sample/event ordering: the device analog of the
     reference's task-per-block pipelining (src/blocks/mod.rs:27-34)."""
     rng = np.random.default_rng(7)
     data = (rng.standard_normal((8, 16))
@@ -733,12 +737,13 @@ def test_runtime_set_map_params():
     run(main())
 
 
-def test_set_deviation_retunes_fused_blocks():
-    """set_deviation must reach the traced 'factor' of the merged
-    FilterDemodFilter and the fused ChannelizerDemod (both advertise
-    recompile-free retune)."""
-    from radiorust_tpu.blocks.channelize import ChannelizerDemod
-    from radiorust_tpu.blocks.frontend import FilterDemodFilter
+def test_set_deviation_retunes_demod_in_chains():
+    """set_deviation must reach the traced factor of an FmDemod inside a
+    filter chain and of the per-channel FmDemod behind a Channelizer
+    (which runs at the channel rate) — recompile-free retune."""
+    from radiorust_tpu.blocks.base import Chain
+    from radiorust_tpu.blocks.filters import Filter
+    from radiorust_tpu.models.channelizer import channelized_receiver
     from radiorust_tpu.numbers import TAU
 
     def lp(bins, freqs):
@@ -746,9 +751,8 @@ def test_set_deviation_retunes_fused_blocks():
 
     async def main():
         rate = 1024000.0
-        blk = RuntimeBlock(FilterDemodFilter(lp, 150000.0, lp))
-        # Bind by processing one chunk (the pair-packed kernel needs an
-        # even batch -> a 2-D batched serving chunk).
+        blk = RuntimeBlock(Chain(Filter.new(lp), FmDemod(150000.0),
+                                 Filter.new(lp)))
         sender, connector = new_sender()
         sink = ArraySink()
         blk.feed_from(type("P", (), {"sender_connector": connector})())
@@ -757,10 +761,13 @@ def test_set_deviation_retunes_fused_blocks():
         await sender.send(Samples(rate, x))
         await until(lambda: len(sink.chunks) >= 1)
         blk.set_deviation(75000.0)
-        got = float(blk._bound.params["factor"])
+        got = float(blk._bound.params[1])
         assert got == np.float32(rate / 75000.0 / TAU)
+        assert blk.deviation() == pytest.approx(75000.0, rel=1e-6)
 
-        blk2 = RuntimeBlock(ChannelizerDemod(64, 4000.0))
+        blk2 = RuntimeBlock(channelized_receiver(64, input_rate=rate,
+                                                 deviation_fraction=
+                                                 4000.0 / (rate / 64)))
         sender2, connector2 = new_sender()
         sink2 = ArraySink()
         blk2.feed_from(type("P", (), {"sender_connector": connector2})())
@@ -769,7 +776,7 @@ def test_set_deviation_retunes_fused_blocks():
         await until(lambda: len(sink2.chunks) >= 1)
         blk2.set_deviation(8000.0)
         ch_rate = rate / 64
-        got2 = float(blk2._bound.params["factor"])
+        got2 = float(blk2._bound.params[1])
         assert got2 == np.float32(ch_rate / 8000.0 / TAU)
 
     run(main())
@@ -1177,16 +1184,17 @@ def test_interrupt_invalidates_restored_checkpoint(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Typed-setter dispatch to the fused Pallas blocks (review regressions)
+# Typed-setter dispatch inside composed chains (review regressions)
 # ---------------------------------------------------------------------------
 
-def test_set_shift_reaches_fused_mixer_decimator():
-    """set_shift must retune _BoundMixerDecimator (the fused frontend) the
-    same way it retunes FreqShifter — a fused actor after set_shift matches
-    an unfused actor after the same set_shift."""
-    from radiorust_tpu.blocks.base import Chain
-    from radiorust_tpu.blocks.frontend import MixerDecimator
+def test_set_shift_reaches_front_end_shifter():
+    """set_shift on the WFM front end (FreqShifter + Downsampler) retunes
+    phase-continuously: an actor retuned mid-stream matches a sequential
+    scan retuned at the same chunk boundary through the block's own
+    retune, and differs from the un-retuned stream."""
+    from radiorust_tpu.blocks.base import Chain, scan
     from radiorust_tpu.blocks.resampling import Downsampler
+    from radiorust_tpu.blocks.transform import _BoundFreqShifter
 
     rng = np.random.default_rng(21)
     xs = (rng.standard_normal((4, 2048))
@@ -1207,30 +1215,41 @@ def test_set_shift_reaches_fused_mixer_decimator():
         assert blk.failure is None
         return sink.chunks
 
-    fused = run(drive(Chain(MixerDecimator(-57000.0, 384000.0, 200000.0))))
-    plain = run(drive(Chain(FreqShifter.with_shift(-57000.0),
-                            Downsampler(384000.0, 200000.0))))
-    assert len(fused) == len(plain) == 4
-    # Chunks 2-3 prove the retune landed (phase-continuously) in both.
-    for f, p in zip(fused, plain):
-        np.testing.assert_allclose(f, p, atol=5e-4)
+    spec = Chain(FreqShifter.with_shift(-57000.0),
+                 Downsampler(384000.0, 200000.0))
+    got = run(drive(spec))
+    assert len(got) == 4
+    bound = spec.bind(StreamSig(1, 2048, 1024000.0))
+    st, ya = scan(bound, bound.params, bound.init_state(),
+                  jnp.asarray(xs[:2, None, :]))
+    params, state = list(bound.params), list(st)
+    for i, blk in enumerate(bound.blocks):
+        if isinstance(blk, _BoundFreqShifter):
+            params[i], state[i] = blk.retune(
+                params[i], jax.tree.map(np.asarray, state[i]), -25000.0)
+    _, yb = scan(bound, tuple(params), tuple(state),
+                 jnp.asarray(xs[2:, None, :]))
+    want = np.concatenate([np.asarray(ya), np.asarray(yb)])[:, 0]
+    # Chunks 2-3 prove the retune landed phase-continuously.
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=5e-4)
+    _, ynot = scan(bound, bound.params, bound.init_state(),
+                   jnp.asarray(xs[:, None, :]))
+    assert np.abs(np.asarray(ynot)[3, 0] - want[3]).max() > 1e-2
 
 
-def test_update_filter_reaches_filter_demod_filter():
-    """update_filter must redesign the merged mid-chain kernel's channel
-    response (_BoundFilterDemodFilter.update_filter_params)."""
+def test_update_filter_reaches_filter_in_wfm_mid_chain():
+    """update_filter must redesign the channel filter of a WFM mid chain
+    (Filter -> FmDemod), leaving the demodulator's params alone."""
     from radiorust_tpu.blocks.base import Chain, StreamSig
-    from radiorust_tpu.blocks.frontend import FilterDemodFilter
-    from radiorust_tpu.models.wfm import _deemphasis_band
-    from radiorust_tpu.windowing import Rectangular
+    from radiorust_tpu.blocks.filters import Filter
 
     def lp(cut):
         def resp(bins, freqs):
             return np.where(np.abs(freqs) <= cut, 1.0 + 0.0j, 0.0j)
         return resp
 
-    spec = Chain(FilterDemodFilter(lp(100000.0), 150000.0,
-                                   _deemphasis_band))
+    spec = Chain(Filter.new(lp(100000.0)), FmDemod(150000.0))
     rng = np.random.default_rng(22)
     xs = (rng.standard_normal((2, 2, 512))
           + 1j * rng.standard_normal((2, 2, 512))).astype(np.complex64)
@@ -1250,11 +1269,12 @@ def test_update_filter_reaches_filter_demod_filter():
         return blk._bound
 
     bound = run(main())
-    want = Chain(FilterDemodFilter(lp(50000.0), 150000.0, _deemphasis_band)
+    want = Chain(Filter.new(lp(50000.0)), FmDemod(150000.0)
                  ).bind(StreamSig(2, 512, 384000.0))
     np.testing.assert_array_equal(
-        np.asarray(bound.params[0]["response1"]),
-        np.asarray(want.params[0]["response1"]))
+        np.asarray(bound.params[0]["response"]),
+        np.asarray(want.params[0]["response"]))
+    assert float(bound.params[1]) == float(want.params[1])
 
 
 def test_rechunker_shrink_to_exact_patchwork_emits_not_drops():

@@ -5,7 +5,7 @@ step programs are compiled (8-device mesh) and the post-SPMD-partitioning
 HLO is scanned for collective ops — every ``collective-permute`` /
 ``all-gather`` / ``all-reduce`` / ``all-to-all`` / ``reduce-scatter`` with
 its (per-device, i.e. local-shard) output shape.  Bytes are what one
-device sends/receives over ICI per executor step.
+device sends/receives over the device interconnect per executor step.
 
 Run on any platform (`JAX_PLATFORMS=cpu` forced — the HLO op mix after
 partitioning is backend-independent; only codegen differs):
@@ -42,8 +42,8 @@ _OP_RE = re.compile(r"=\s*(?:\([^)]*\)|\S+)\s+"
                     r"(collective-permute|all-gather|all-reduce|"
                     r"all-to-all|reduce-scatter)(?:-start)?\(")
 # Non-greedy op capture: greedy [\w\-]+ would swallow the '-start'
-# suffix of async collective pairs (the standard form under TPU
-# latency-hiding scheduling), misclassifying them and emptying
+# suffix of async collective pairs (the form latency-hiding scheduling
+# emits), misclassifying them and emptying
 # schedule_overlap_report's collective list.
 _OP_ALL_RE = re.compile(r"=\s*(?:\([^)]*\)|\S+)\s+([\w\-]+?)(?:-start)?\(")
 
@@ -188,19 +188,6 @@ def measure_channel_sharded(d: int = 8):
     return counts, vols, schedule_overlap_report(txt)
 
 
-def measure_fused_time_sharded(d: int = 8):
-    from radiorust_tpu.blocks.base import StreamSig
-    from radiorust_tpu.models.wfm import wfm_receiver
-    from radiorust_tpu.parallel.time_shard import TimeShardedChain
-    mesh = jax.make_mesh((d,), ("t",))
-    sig = StreamSig(2, 16384, 1024000.0)
-    ts = TimeShardedChain(
-        wfm_receiver(fuse_frontend=True, fuse_demod=True).bind(sig), mesh)
-    x = np.zeros((2, d * 16384), np.complex64)
-    return _time_sharded_volumes(ts, ((), *ts.params),
-                                 ((), *ts.init_state()), {"in": x})
-
-
 def main():
     rows = []
     for name, fn, note in [
@@ -213,9 +200,6 @@ def main():
         ("WFM t=8 batch 8, overlap=4",
          lambda: measure_time_sharded_wfm(batch=8, overlap=4),
          "sub-batch pipelining: ~3/4 of compute independent per permute"),
-        ("WFM fused Pallas t=8 (batch 2, n=16384)",
-         measure_fused_time_sharded,
-         "mixed-domain + demod-domain halos"),
         ("Channelizer 64ch channel-sharded c=8 (n=16384)",
          measure_channel_sharded,
          "branch all_gather (decimated data)"),
@@ -234,7 +218,7 @@ def main():
                   f"min {r['min_indep_heavy']} mean {r['mean_indep_heavy']}"
                   f" ({r['mean_indep_frac']:.0%} of compute hideable)")
     print()
-    print("| configuration | ICI bytes/device/step | breakdown |"
+    print("| configuration | bytes/device/step | breakdown |"
           " permute-hideable compute |")
     print("|---|---|---|---|")
     for name, total, detail, frac, note in rows:
